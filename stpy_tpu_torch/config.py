@@ -1,0 +1,35 @@
+"""Numeric policy of the port: IEEE f32 matmuls, jitter defaults, tensor
+conversion.
+
+Counterpart of stpy_tpu/config.py. The JAX package forces
+``jax_default_matmul_precision="highest"`` because a GP is accuracy-critical;
+the card's equivalent is to keep TF32 off for matmuls and convolutions, set
+here when the package is imported. There is no global dtype flag: models and
+kernels take an explicit ``device`` and ``dtype``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+torch.set_float32_matmul_precision("highest")
+
+# relative jitter added to Gram diagonals before Cholesky, scaled by the mean
+# diagonal magnitude; f32 needs more than f64
+_JITTER_F32 = 1e-6
+_JITTER_F64 = 1e-12
+
+
+def default_jitter(dtype: torch.dtype = torch.float32) -> float:
+    return _JITTER_F64 if dtype == torch.float64 else _JITTER_F32
+
+
+def as_tensor(x, device=None, dtype=torch.float32) -> torch.Tensor:
+    """Convert array-like (tensor, numpy, anything with ``__array__``) to a
+    tensor of `dtype` on `device`."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=dtype)
+    return torch.tensor(np.asarray(x), dtype=dtype, device=device)

@@ -1,0 +1,106 @@
+"""Dense linear algebra for GP fits: jittered Cholesky and triangular solves.
+
+Port of the part of stpy_tpu/linalg.py on the exact-GP path, with the same
+names and semantics. The JAX bodies are XLA ops, not Pallas kernels, so the
+port calls cuSOLVER / cuBLAS through `torch.linalg.cholesky_ex` and
+`torch.linalg.solve_triangular`. Failure is reported as a returned flag,
+never raised.
+
+The `precision`, `precision_bwd`, `nb` and `leaf_inv` arguments exist for
+signature parity and have no effect: they pick the TPU's bf16-pass count and
+blocking, while the card computes in IEEE f32 / f64 (TF32 is off, see
+config.py). The rank-1 updates (stpy_tpu/linalg.py:395-446) are not ported
+yet.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from stpy_tpu_torch.config import default_jitter
+
+
+class CholResult(NamedTuple):
+    L: torch.Tensor          # lower-triangular factor of K + jitter*I
+    jitter: torch.Tensor     # jitter actually used (scalar)
+    ok: torch.Tensor         # bool: factorization succeeded
+
+
+def _mean_diag_scale(K):
+    scale = torch.mean(torch.diagonal(K))
+    return torch.where(scale <= 0, torch.ones_like(scale), scale)
+
+
+def _cholesky(A):
+    """Lower factor of A, NaN-filled where the factorization fails (the
+    JAX convention the jitter ladder and `ok` flags rely on)."""
+    L, info = torch.linalg.cholesky_ex(A)
+    return torch.where(info == 0, L, torch.full_like(L, float("nan")))
+
+
+def chol_jittered(K, jitter: float | None = None):
+    """Single fixed-jitter Cholesky of K + jitter·mean(diag K)·I;
+    differentiable. `safe_cholesky` is the escalating inference-time one."""
+    base = default_jitter(K.dtype) if jitter is None else jitter
+    A = K + base * _mean_diag_scale(K) * torch.eye(
+        K.shape[0], dtype=K.dtype, device=K.device)
+    return _cholesky(A)
+
+
+def safe_cholesky(K, jitter: float | None = None, max_tries: int = 6,
+                  fast: bool = False) -> CholResult:
+    """Cholesky of a PSD matrix with an escalating (10x) jitter ladder:
+    jitter·scale, then ×10 up to `max_tries` more times, scale being the
+    mean diagonal. Never raises; `ok` reports success.
+
+    The jitter goes onto K's diagonal in place and K's original diagonal
+    is restored before returning, so no n² copy of K is made (1 GiB at
+    n = 16k in f32). `fast` has no effect (see the module docstring)."""
+    base = default_jitter(K.dtype) if jitter is None else jitter
+    scale = _mean_diag_scale(K)
+    diag = torch.diagonal(K)
+    orig = diag.clone()
+    j = torch.tensor(base, dtype=K.dtype, device=K.device)
+    try:
+        for t in range(max_tries + 1):
+            if t:
+                j = j * 10.0
+            diag.copy_(orig + j * scale)
+            L, info = torch.linalg.cholesky_ex(K)
+            if int(info) == 0:
+                return CholResult(L=L, jitter=j * scale,
+                                  ok=torch.tensor(True, device=K.device))
+        return CholResult(L=torch.full_like(L, float("nan")),
+                          jitter=j * scale,
+                          ok=torch.tensor(False, device=K.device))
+    finally:
+        diag.copy_(orig)
+
+
+def cho_solve(L, b):
+    """Solve (L Lᵀ) x = b given the lower Cholesky factor L."""
+    return torch.cholesky_solve(b, L, upper=False)
+
+
+def tri_solve(L, b, lower: bool = True):
+    return torch.linalg.solve_triangular(L, b, upper=not lower)
+
+
+def tri_solve_blocked(L, B, nb: int = 512, precision=None, leaf_inv=None):
+    """Lower-triangular solve L X = B for a wide right-hand side (one
+    cuBLAS trsm on the card). `nb`, `precision` and `leaf_inv` have no
+    effect (see the module docstring)."""
+    return torch.linalg.solve_triangular(L, B, upper=False)
+
+
+def cho_solve_blocked(L, b, nb: int = 512, precision=None, leaf_inv=None,
+                      precision_bwd=None):
+    """(L Lᵀ)⁻¹ b. `nb`, `precision`, `leaf_inv` and `precision_bwd` have no
+    effect (see the module docstring)."""
+    return torch.cholesky_solve(b, L, upper=False)
+
+
+def logdet_from_chol(L):
+    return 2.0 * torch.sum(torch.log(torch.diagonal(L)))

@@ -1,0 +1,104 @@
+"""Fused Gram K(x, y) = κ·shape(max(‖x‖² + ‖y‖² − 2x·yᵀ, 0)).
+
+Port of stpy_tpu/ops/pallas_gram.py (`gram_se`, `gram_matern`, `gram`). The
+1/γ scaling (scalar or ARD) happens here, outside the kernel, as in
+`pallas_gram._gram`. For CUDA tensors `gram_scaled` launches the hand-written
+kernel csrc/gram.cu (f32 only); for CPU tensors it runs `gram_plain`, the
+same formula in PyTorch (any float dtype, differentiable).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from stpy_tpu_torch import _build
+from stpy_tpu_torch.kernels import functions as F
+from stpy_tpu_torch.ops import check_cuda_inputs
+
+# (family, nu) -> the shape code of csrc/gram.cu and csrc/gram_df.cu
+SHAPE_CODES = {
+    ("se", None): 0,
+    ("matern", 0.5): 1,
+    ("matern", 1.5): 2,
+    ("matern", 2.5): 3,
+}
+
+# distance eps: keeps sqrt finite at coincident points (as pallas_gram._EPS)
+_EPS = 1e-30
+
+
+def shape_code(family: str, nu: float) -> int:
+    key = (family, None if family == "se" else float(nu))
+    if key not in SHAPE_CODES:
+        raise NotImplementedError(
+            f"fused Gram for family={family!r}, nu={nu}: only SE and Matérn "
+            "nu in (0.5, 1.5, 2.5) are fused (ROADMAP Queue 1 item 7)"
+        )
+    return SHAPE_CODES[key]
+
+
+def gram_plain(xs, ys, kappa, family="se", nu=1.5):
+    """Plain PyTorch version of the kernel: same formula, any dtype."""
+    sq = F.sq_dist(xs, ys)
+    if family == "se":
+        K = F.se_shape(sq)
+    else:
+        K = F.matern_shape(torch.sqrt(sq + _EPS), nu)
+    return _as_factor(kappa, K) * K
+
+
+def gram_scaled(xs, ys, kappa, family="se", nu=1.5):
+    """Gram of coordinates already scaled by 1/γ. CUDA: the hand kernel;
+    CPU: `gram_plain`."""
+    code = shape_code(family, nu)
+    if not xs.is_cuda:
+        return gram_plain(xs, ys, kappa, family, nu)
+    check_cuda_inputs("gram", torch.float32, xs, ys)
+    xs, ys = xs.contiguous(), ys.contiguous()
+    n, d = xs.shape
+    m = ys.shape[0]
+    out = torch.empty((n, m), dtype=torch.float32, device=xs.device)
+    if n == 0 or m == 0:
+        return out
+    lib = _build.library()
+    with torch.cuda.device(xs.device):
+        err = lib.stpy_gram_f32(
+            xs.data_ptr(), ys.data_ptr(), out.data_ptr(), n, m, d,
+            float(kappa), code, torch.cuda.current_stream().cuda_stream,
+        )
+    _build.check(err, "gram")
+    gram_scaled.launches += 1
+    return out
+
+
+gram_scaled.launches = 0
+
+
+def _as_factor(v, like: torch.Tensor):
+    if isinstance(v, torch.Tensor):
+        return v.to(device=like.device, dtype=like.dtype)
+    return v
+
+
+def gram_se(x, y, gamma, kappa=1.0):
+    """Fused SE Gram κ·exp(−‖x−y‖²/(2γ²)); γ scalar or per-dim (ARD)."""
+    g = _as_factor(gamma, x)
+    return gram_scaled(x / g, y / g, kappa, "se")
+
+
+def gram_matern(x, y, gamma, kappa=1.0, nu=1.5):
+    """Fused Matérn Gram for ν ∈ {½, 3/2, 5/2}."""
+    g = _as_factor(gamma, x)
+    return gram_scaled(x / g, y / g, kappa, "matern", nu)
+
+
+def gram(x, y, *, family="se", gamma=1.0, kappa=1.0, nu=1.5):
+    if family in ("se", "ard"):
+        return gram_se(x, y, gamma, kappa)
+    if family == "matern":
+        return gram_matern(x, y, gamma, kappa, nu)
+    if family == "laplace":
+        raise NotImplementedError(
+            "laplace Gram: the port of _gram_l1_kernel is ROADMAP Queue 2 item 5"
+        )
+    raise NotImplementedError(family)
