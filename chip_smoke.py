@@ -1,15 +1,18 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch / CUDA port (stpy_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--profile]
 
 Builds the hand-written kernels from stpy_tpu_torch/csrc, holds each kernel
 against its plain PyTorch version on the card, drives the exact-GP serving
 path (GaussianProcess.fit_predict, single and double tier) at n = ntest =
 16384, d = 8 with the data of bench.py, checks the posterior against a
 float64 computation by plain torch.linalg on the card, shows through the
-launch counters that the path went through the kernels, and times both
-tiers and every kernel. Every phase asserts; any failure exits non-zero.
+launch counters (zeroed before each tier) that the path went through the
+kernels, and times both tiers and every kernel. With --profile it also
+traces one warm fit_predict per tier with torch.profiler: device busy time
+and idle share, host time, peak memory, and the kernels that take the time.
+Every phase asserts; any failure exits non-zero.
 
 The last line of standard output is one JSON object
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}; the
@@ -20,6 +23,7 @@ script exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import argparse
 import json
 import subprocess
 import sys
@@ -69,6 +73,9 @@ REPLACES = {
     "gemv_df": ("stpy_tpu_torch/csrc/gemv_df.cu",
                 "stpy_tpu/ops/pallas_gemv_df.py:48"),
 }
+# the cuSOLVER / cuBLAS stages of stpy_tpu_torch/linalg.py (phase 7 split)
+LINALG_OPS = ("aten::linalg_cholesky_ex", "aten::cholesky_solve",
+              "aten::linalg_solve_triangular")
 
 
 def card_line() -> str:
@@ -231,7 +238,62 @@ def wall_median(gp, x, y, xt, reps=3) -> float:
     return float(np.median(times))
 
 
-def main() -> int:
+def profile_tier(kernel, precision, x, y, xt, top=10):
+    """Phase 7 (--profile): one warm fit_predict of a fresh GP under
+    torch.profiler. Prints the device busy time (union of all device
+    activity), the device span, the idle share of that span, the host time
+    until fit_predict returns (before the closing synchronize), the peak
+    device memory of the call, the `top` kernels by device time, and the
+    device time of each linalg stage (LINALG_OPS)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    gp = GaussianProcess(kernel=kernel, s=S, precision=precision)
+    gp.fit_predict(x, y, xt)
+    torch.cuda.synchronize()
+    # the refit releases the previous factors before it allocates (see
+    # GaussianProcess._set_data), so the peak is the call's own plus the data
+    torch.cuda.reset_peak_memory_stats()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        gp.fit_predict(x, y, xt)
+        host_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    assert dev, "torch.profiler recorded no device activity"
+    busy, reach = 0.0, float("-inf")
+    per_name = {}
+    for e in sorted(dev, key=lambda e: e.time_range.start):
+        start, end = e.time_range.start, e.time_range.end
+        busy += max(0.0, end - max(start, reach))
+        reach = max(reach, end)
+        t, c = per_name.get(e.name, (0.0, 0))
+        per_name[e.name] = (t + end - start, c + 1)
+    span = reach - min(e.time_range.start for e in dev)
+    print(f"  {precision}: device busy {busy / 1e3!r} ms of span "
+          f"{span / 1e3!r} ms (idle {1 - busy / span!r}), host "
+          f"{host_ms!r} ms to return, peak device memory {peak_gib!r} GiB")
+    for name, (t, c) in sorted(per_name.items(), key=lambda kv: -kv[1][0])[:top]:
+        print(f"    {t / 1e3:10.3f} ms  x{c:<4d} {name[:100]}")
+    for kname in REPLACES:
+        hits = [tc for name, tc in per_name.items() if f"{kname}_kernel" in name]
+        print(f"    hand kernel {kname}: {sum(t for t, _ in hits) / 1e3!r} ms "
+              f"over {sum(c for _, c in hits)} launches")
+    # device time of every kernel launched inside each linalg op of the path
+    for avg in prof.key_averages():
+        if avg.key in LINALG_OPS:
+            print(f"    {avg.key}: {avg.device_time_total / 1e3!r} ms device "
+                  f"over {avg.count} calls")
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument(
+        "--profile", action="store_true",
+        help="also profile one warm fit_predict per tier (phase 7)")
+    profile = parser.parse_args(argv).profile
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
@@ -265,20 +327,24 @@ def main() -> int:
     del mu, sd
 
     print("== phase 4: double tier (var_refine=0) fit_predict, same shape")
+    reset_launch_counts()
     gp2, mu, sd = fit_predict_tier(kernel, "double", x, y, xt)
-    counts = launch_counts()
+    double_counts = launch_counts()
     double = posterior_errors(mu, sd, mu64, var64)
     print(f"  mean rel err {double[0]!r} (ROADMAP bar 1e-7), var rel err max "
           f"{double[1]!r} median {double[2]!r}, fit_status {gp2.fit_status}")
     assert double[0] <= DOUBLE_MEAN_RTOL and double[1] <= VAR_MAX_RTOL, double
-    del mu, sd
+    del mu, sd, mu64, var64
 
     print("== phase 5: launch counts")
-    double_counts = {k: counts[k] - single_counts[k] for k in counts}
+    # the double tier's Grams are all df pairs: it launches no f32 gram
     print(f"  single tier {single_counts}, double tier {double_counts}")
     assert single_counts["gram"] > 0, single_counts
     assert double_counts["gram_df"] > 0 and double_counts["gemv_df"] > 0, \
         double_counts
+    launches = {"gram": ("single", single_counts["gram"]),
+                "gram_df": ("double", double_counts["gram_df"]),
+                "gemv_df": ("double", double_counts["gemv_df"])}
 
     print("== phase 6: times on", card)
     wall1 = wall_median(gp1, x, y, xt)
@@ -291,12 +357,17 @@ def main() -> int:
 
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": REPLACES[name][0],
-         "replaces": REPLACES[name][1], "launches": counts[name],
-         "max_abs_err": errs[name], "ms": ktimes[name][0],
-         "plain_ms": ktimes[name][1]}
+         "replaces": REPLACES[name][1], "tier": launches[name][0],
+         "launches": launches[name][1], "max_abs_err": errs[name],
+         "ms": ktimes[name][0], "plain_ms": ktimes[name][1]}
         for name in ("gram", "gram_df", "gemv_df")
     ], "fit_predict_s": {"single": wall1, "double": wall2},
         "posterior": {"single": single, "double": double}}
+    if profile:
+        del gp1, gp2
+        print("== phase 7: one warm fit_predict per tier under torch.profiler")
+        for precision in ("single", "double"):
+            profile_tier(kernel, precision, x, y, xt)
     print(json.dumps(record))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

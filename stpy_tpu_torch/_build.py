@@ -3,8 +3,9 @@
 Every source under ``csrc/`` compiles with ONE ``nvcc`` call into one shared
 library with a plain C interface (no PyTorch headers, so the build takes
 seconds), which is loaded with ``ctypes``. The library goes into
-``build/stpy_tpu_torch/<hash of the sources and flags>/`` at the repository
-root, so an edited source builds anew and an unchanged one is reused.
+``<build root>/<hash of the sources and flags>/``, so an edited source
+builds anew and an unchanged one is reused; the build root is
+``build/stpy_tpu_torch/`` at the repository root (see :func:`build_root`).
 
 Nothing is built or loaded when the package is imported: the first kernel
 launch calls :func:`library`. Every C entry point returns
@@ -24,7 +25,21 @@ import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-BUILD_ROOT = Path(__file__).resolve().parent.parent / "build" / "stpy_tpu_torch"
+
+
+def build_root(package_dir: Path = CSRC.parent) -> Path:
+    """``build/stpy_tpu_torch/`` in the source checkout that holds the
+    package (its ``.gitignore`` lists ``build/``); for an installed copy,
+    which has no checkout around it, ``stpy_tpu_torch/`` in the per-user
+    cache (``$XDG_CACHE_HOME`` or ``~/.cache``)."""
+    checkout = package_dir.parent
+    if (checkout / "pyproject.toml").is_file():
+        return checkout / "build" / "stpy_tpu_torch"
+    cache = os.environ.get("XDG_CACHE_HOME") or Path.home() / ".cache"
+    return Path(cache) / "stpy_tpu_torch"
+
+
+BUILD_ROOT = build_root()
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",

@@ -33,7 +33,7 @@ from stpy_tpu_torch.linalg import (
     tri_solve_blocked,
 )
 from stpy_tpu_torch.models.estimator import Estimator
-from stpy_tpu_torch.ops.gemv_df import gemv_df, two_prod, two_sum
+from stpy_tpu_torch.ops.gemv_df import gemv_df
 
 
 class GaussianProcess(Estimator):
@@ -169,23 +169,22 @@ class GaussianProcess(Estimator):
         A.diagonal().add_(self.s * self.s)
         L, ok, jitter = self._factor(A)
         del A
-        # refinement with an EXACT df residual y − (Kh + Kl + s²I)·α and
-        # alpha carried as a df pair: a single-f32 alpha caps the posterior
-        # mean at eps·‖K*‖‖α‖/‖μ‖. The s² term runs in df too.
-        s = torch.tensor(self.s, dtype=self.dtype, device=self.device)
+        # refinement with an EXACT residual y − (Kh + Kl + s²I)·α and alpha
+        # carried as a df pair: a single-f32 alpha caps the posterior mean
+        # at eps·‖K*‖‖α‖/‖μ‖. The n² product is the df GEMV kernel; the O(n)
+        # terms around it run in float64, where the JAX package needs
+        # TwoSum/TwoProd because the TPU has no f64.
+        f64 = torch.float64
+        y64, s2 = y.to(f64), self.s * self.s
         a_h = cho_solve_blocked(L, y)
         a_l = torch.zeros_like(a_h)
-        s2h, s2e = two_prod(s, s)
         for _ in range(self._df_refine_steps_resolved):
             Ph, Pl = gemv_df(Kh, Kl, a_h, vl=a_l)
-            qh, qe = two_prod(s2h, a_h)
-            qe = qe + (s2e * a_h + s2h * a_l)
-            rh, re = two_sum(y, -Ph[:, None])
-            rh, re2 = two_sum(rh, -qh)
-            r = rh + ((re + re2) - Pl[:, None] - qe)
-            d = cho_solve_blocked(L, r)
-            a_h, e = two_sum(a_h, d)
-            a_l = a_l + e
+            alpha = a_h.to(f64) + a_l.to(f64)
+            r = y64 - (Ph.to(f64) + Pl.to(f64))[:, None] - s2 * alpha
+            alpha += cho_solve_blocked(L, r.to(self.dtype)).to(f64)
+            a_h = alpha.to(self.dtype)
+            a_l = (alpha - a_h.to(f64)).to(self.dtype)
         return L, torch.cat([a_h, a_l], dim=1), ok, jitter
 
     def _fit(self, x, y):

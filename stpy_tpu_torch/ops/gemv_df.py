@@ -1,16 +1,10 @@
-"""Exact double-float GEMV (Ah + Al)·(v + vl) → (hi, lo), and the
-error-free transforms the double tier uses around it.
+"""Exact double-float GEMV (Ah + Al)·(v + vl) → (hi, lo).
 
 Port of stpy_tpu/ops/pallas_gemv_df.py (`gemv_df_fused`) and of
 stpy_tpu/ops/compensated.py:gemv_df, its entry point. For CUDA tensors
 `gemv_df` launches csrc/gemv_df.cu (f32 only), which sums in FP64; for CPU
 tensors it runs `gemv_df_plain`, the f64 GEMV of the JAX package's x64
 branch (pallas_gemv_df.py:169-174).
-
-`two_sum` / `two_prod` port the helpers of stpy_tpu/ops/pallas_gram_df.py.
-PyTorch runs each elementwise op as its own kernel, so no multiply-add is
-contracted into an FMA and the transforms stay exact; no guard like the JAX
-package's optimization barriers is needed.
 """
 
 from __future__ import annotations
@@ -19,27 +13,6 @@ import torch
 
 from stpy_tpu_torch import _build
 from stpy_tpu_torch.ops import check_cuda_inputs
-
-
-def two_sum(a, b):
-    """s + e = a + b exactly, s = fl(a + b)."""
-    s = a + b
-    v = s - a
-    return s, (a - (s - v)) + (b - v)
-
-
-def two_prod(a, b):
-    """p + e = a·b exactly, p = fl(a·b) (Dekker, Veltkamp split)."""
-    dtype = a.dtype if isinstance(a, torch.Tensor) else b.dtype
-    split = 134217729.0 if dtype == torch.float64 else 4097.0   # 2^27+1, 2^12+1
-    p = a * b
-    ca = a * split
-    ah = ca - (ca - a)
-    al = a - ah
-    cb = b * split
-    bh = cb - (cb - b)
-    bl = b - bh
-    return p, ((ah * bh - p) + ah * bl + al * bh) + al * bl
 
 
 def gemv_df_plain(Ah, Al, v, vl):

@@ -185,5 +185,13 @@ def test_build_command_targets_sm90a_and_every_source():
     assert _build.library_path().parent.parent == _build.BUILD_ROOT
 
 
+def test_build_root_is_the_checkout_or_the_user_cache(tmp_path, monkeypatch):
+    repo = Path(_build.__file__).resolve().parent.parent
+    assert _build.BUILD_ROOT == repo / "build" / "stpy_tpu_torch"
+    monkeypatch.setenv("XDG_CACHE_HOME", str(tmp_path / "cache"))
+    installed = tmp_path / "site-packages" / "stpy_tpu_torch"
+    assert _build.build_root(installed) == tmp_path / "cache" / "stpy_tpu_torch"
+
+
 def test_importing_the_port_builds_nothing():
     assert _build._lib is None
