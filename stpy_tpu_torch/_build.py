@@ -54,6 +54,14 @@ _SIGNATURES = {
     "stpy_gram_df": (_P, _P, _P, _P, _I, _I, _I, ctypes.c_double, _I, _P),
     # ah, al, v, vl, oh, ol, m, k, stream
     "stpy_gemv_df": (_P, _P, _P, _P, _P, _P, _I, _I, _P),
+    # x, y, out, n, m, d, kappa, inv_g2, stream
+    "stpy_gram_l1": (_P, _P, _P, _I, _I, _I, ctypes.c_float, ctypes.c_float, _P),
+    # th, tl, w0k, w0a, bh, bl, s2, part, c, n, t, stream
+    "stpy_qform_df": (_P, _P, _P, _P, _P, _P, ctypes.c_double, _P, _I, _I, _I, _P),
+    # part, row tiles, t, qh, ql, stream
+    "stpy_qform_df_reduce": (_P, _I, _I, _P, _P, _P),
+    # c -> rows of the partial-sum buffer of stpy_qform_df
+    "stpy_qform_df_row_tiles": (_I,),
 }
 
 _lock = threading.Lock()

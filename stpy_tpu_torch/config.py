@@ -1,11 +1,12 @@
-"""Numeric policy of the port: IEEE f32 matmuls, jitter defaults, tensor
-conversion.
+"""Numeric policy of the port: IEEE f32 matmuls, jitter defaults, the default
+device, tensor conversion.
 
 Counterpart of stpy_tpu/config.py. The JAX package forces
 ``jax_default_matmul_precision="highest"`` because a GP is accuracy-critical;
 the card's equivalent is to keep TF32 off for matmuls and convolutions, set
 here when the package is imported. There is no global dtype flag: models and
-kernels take an explicit ``device`` and ``dtype``.
+kernels take an explicit ``device`` and ``dtype``; a ``device`` left as None
+means the card (:func:`resolve_device`).
 """
 
 from __future__ import annotations
@@ -25,6 +26,19 @@ _JITTER_F64 = 1e-12
 
 def default_jitter(dtype: torch.dtype = torch.float32) -> float:
     return _JITTER_F64 if dtype == torch.float64 else _JITTER_F32
+
+
+def resolve_device(device=None) -> torch.device:
+    """`device`, or the card when it is None. Raises when there is no CUDA
+    device to default to: the CPU is used only when asked for."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: the port runs on the card by default; pass "
+            "device='cpu' to run on the CPU"
+        )
+    return torch.device("cuda")
 
 
 def as_tensor(x, device=None, dtype=torch.float32) -> torch.Tensor:

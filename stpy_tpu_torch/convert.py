@@ -23,10 +23,12 @@ def params_from_jax(params_dict_numpy, device=None, dtype=torch.float64):
     }
 
 
-def load_fitted_state(gp_port, x, y, L, A, A_df=None):
-    """Load a fitted JAX GP's state (data, Cholesky factor, alpha and, for
-    ``precision="double"``, the (n, 2) df alpha pair) into a port
-    `GaussianProcess`, so that `mean_std` runs on the same factor."""
+def load_fitted_state(gp_port, x, y, L, A, A_df=None, df_train=None):
+    """Load a fitted JAX GP's state (data, Cholesky factor, alpha, for
+    ``precision="double"`` the (n, 2) df alpha pair and, with
+    ``var_refine``, the train df Gram pair ``_df_train``) into a port
+    `GaussianProcess`, so that `mean_std` runs on the same factor. Tensors
+    go to the GP's device and dtype."""
     def t(a):
         return as_tensor(a, device=gp_port.device, dtype=gp_port.dtype)
 
@@ -39,6 +41,10 @@ def load_fitted_state(gp_port, x, y, L, A, A_df=None):
             raise ValueError("precision='double' needs the (n, 2) A_df pair")
         gp_port._A_df = t(A_df)
         gp_port.A = gp_port._A_df[:, :1]
+        if gp_port._var_refine:
+            if df_train is None:
+                raise ValueError("var_refine needs the (Kh, Kl) df_train pair")
+            gp_port._df_train = tuple(t(k) for k in df_train)
     else:
         gp_port.A = t(A).reshape(-1, 1)
     gp_port.fitted = True

@@ -1,11 +1,11 @@
 """Double-float (hi, lo) Gram planning over `KernelFunction` atoms.
 
 Port of the fused-family part of stpy_tpu/kernels/df_plan.py
-(`df_atom_desc`, `df_gram_from_desc`). Every atom goes through the df Gram of
-ops/gram_df.py; composites fold their pairs in float64 and split again
-(ops/gram_df.df_add / df_mul). The general-ν Matérn and generic-interpreter
-tiers (`matern_gen`, `generic`) and `strip_fold` are not ported: the
-general double tier is ROADMAP Queue 1 item 7.
+(`df_atom_desc`, `df_gram_from_desc`, `df_diag_from_desc`). Every atom goes
+through the df Gram of ops/gram_df.py; composites fold their pairs in
+float64 and split again (ops/gram_df.df_add / df_mul). The general-ν Matérn
+and generic-interpreter tiers (`matern_gen`, `generic`) and `strip_fold` are
+not ported: the general double tier is ROADMAP Queue 1 item 7.
 """
 
 from __future__ import annotations
@@ -34,6 +34,15 @@ def df_atom_desc(kernel_object):
         elif name in ("matern", "ard_matern") and nu in (0.5, 1.5, 2.5):
             fam = "matern"
             gkey = "gamma" if name == "matern" else "ard_gamma"
+        elif name == "laplace":
+            # the JAX package's double tier maps laplace to the L2 Matérn-½
+            # (stpy_tpu/kernels/df_plan.py:56-57), a different kernel from
+            # the L1 one of its single tier; the port does not copy that
+            raise NotImplementedError(
+                "precision='double' for the laplace atom: the reference's "
+                "double tier computes an L2 Matérn-1/2 instead of the L1 "
+                "Laplace kernel, ROADMAP Queue 3"
+            )
         else:
             raise NotImplementedError(
                 f"precision='double' for kernel atom {name!r}: the "
@@ -68,3 +77,17 @@ def df_gram_from_desc(kernel_object, params_dict, a, b, desc):
         else:
             outh, outl = Kh, Kl
     return outh, outl
+
+
+def df_diag_from_desc(kernel_object, params_dict, x, desc, chunk=512):
+    """df (hi, lo) prior diagonal k**(x): the diagonals of chunked
+    (chunk, chunk) df Grams of slices of x, so every df atom family gets a
+    double-float k**. The variance k** − q cancels; an f32 k** would floor
+    it at eps·k**/var for kernels whose k** is not an f32 number."""
+    hs, ls = [], []
+    for r0 in range(0, x.shape[0], chunk):
+        xt = x[r0:r0 + chunk]
+        Dh, Dl = df_gram_from_desc(kernel_object, params_dict, xt, xt, desc)
+        hs.append(torch.diagonal(Dh))
+        ls.append(torch.diagonal(Dl))
+    return torch.cat(hs), torch.cat(ls)

@@ -1,4 +1,4 @@
-"""Distance primitives and the SE / half-integer Matérn shapes.
+"""Distance primitives and the SE / half-integer Matérn / Laplace shapes.
 
 Port of the part of stpy_tpu/kernels/functions.py that the exact-GP slice
 uses. The rest of the catalogue (gibbs, polynomial, step, wiener, spectral,
@@ -24,6 +24,12 @@ def euclid_dist(x, y, eps=1e-36):
     return torch.sqrt(sq_dist(x, y) + eps)
 
 
+def manhattan_dist(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Pairwise L1 distances Σ_c |x_c − y_c|, (n, m)
+    (stpy_tpu/kernels/functions.py:39-40)."""
+    return torch.cdist(x, y, p=1)
+
+
 def se_shape(sq: torch.Tensor) -> torch.Tensor:
     """Squared-exponential correlation of a squared scaled distance."""
     return torch.exp(-0.5 * sq)
@@ -42,3 +48,9 @@ def matern_shape(dists: torch.Tensor, nu: float) -> torch.Tensor:
     raise NotImplementedError(
         f"Matérn nu={nu}: general-ν Matérn is ROADMAP Queue 1 item 7"
     )
+
+
+def laplace_shape(d1: torch.Tensor) -> torch.Tensor:
+    """Laplace correlation exp(−d1) of a scaled L1 distance
+    d1 = ‖x − y‖₁/γ² (stpy_tpu/kernels/functions.py:71-75)."""
+    return torch.exp(-d1)

@@ -2,8 +2,10 @@
 
 Port of stpy_tpu/kernels/kernel_function.py for the atoms of the exact-GP
 slice: `squared_exponential`, `ard`, `matern` and `ard_matern` with
-ν ∈ {½, 3/2, 5/2}, all routed to the fused Gram of ops/gram.py. Any other
-kernel raises NotImplementedError naming its ROADMAP item.
+ν ∈ {½, 3/2, 5/2}, routed to the fused Gram of ops/gram.py, and `laplace`,
+routed to the L1 Gram of ops/gram_l1.py. Any other kernel raises
+NotImplementedError naming its ROADMAP item. With ``device=None`` the kernel
+lives on the card (config.resolve_device).
 
 Hyperparameters live in ``params_dict`` as nested dicts of float64 tensors on
 the kernel's device, whatever the working ``dtype``: the double tier reads
@@ -19,8 +21,9 @@ from __future__ import annotations
 
 import torch
 
-from stpy_tpu_torch.config import as_tensor
+from stpy_tpu_torch.config import as_tensor, resolve_device
 from stpy_tpu_torch.ops import gram as gram_ops
+from stpy_tpu_torch.ops import gram_l1
 
 _TAIL = "ROADMAP Queue 1 item 7 (the kernel tail and the general double tier)"
 
@@ -62,17 +65,13 @@ class KernelFunction:
         self.d = d
         self.group = list(range(d)) if group is None else list(group)
         self.groups = groups
-        self.device = torch.device("cpu" if device is None else device)
+        self.device = resolve_device(device)
         self.dtype = dtype
         if kernel_function is not None:
             raise NotImplementedError(f"custom kernel functions: {_TAIL}")
         name = kernel_name
-        if name == "laplace":
-            raise NotImplementedError(
-                "laplace kernel: the port of _gram_l1_kernel is ROADMAP "
-                "Queue 2 item 5"
-            )
-        if name not in ("squared_exponential", "ard", "matern", "ard_matern"):
+        if name not in ("squared_exponential", "ard", "matern", "ard_matern",
+                        "laplace"):
             raise NotImplementedError(f"kernel {name!r}: {_TAIL}")
         if name == "ard" and groups is not None:
             raise NotImplementedError(f"additive ard over groups: {_TAIL}")
@@ -81,7 +80,7 @@ class KernelFunction:
 
         p = {"kappa": self._param(kappa)}
         static = {"group": self.group}
-        if name in ("squared_exponential", "matern"):
+        if name in ("squared_exponential", "matern", "laplace"):
             p["gamma"] = self._param(gamma)
         else:
             g = self._param(1.0 if ard_gamma is None else ard_gamma).reshape(-1)
@@ -121,6 +120,12 @@ class KernelFunction:
             def fn(p, a, b):
                 return gram_ops.gram_se(select(a), select(b), gamma_of(p),
                                         p.get("kappa", 1.0))
+            return fn
+
+        if name == "laplace":
+            def fn(p, a, b):
+                return gram_l1.gram_laplace(select(a), select(b), p["gamma"],
+                                            p.get("kappa", 1.0))
             return fn
 
         def fn(p, a, b):

@@ -8,7 +8,13 @@ Port of stpy_tpu/models/exact_gp.py for the exact-GP serving path:
 * double tier (``precision="double"``, ``var_refine=0``): double-float
   (hi, lo) Gram (csrc/gram_df.cu) → Cholesky of the hi part + s²I →
   iterative refinement of alpha as a df pair with exact df GEMV residuals
-  (csrc/gemv_df.cu) → df predictive mean → variance through the hi part.
+  (csrc/gemv_df.cu) → df predictive mean → variance through the hi part;
+* refined double tier (``var_refine >= 1``): the same fit, keeping the train
+  df Gram → df mean → df k** → one solve W0 = (L Lᵀ)⁻¹ K*ᵀ → the fused df
+  quadratic form q (csrc/qform_df.cu) → variance k** − q in float64.
+
+The models run on the card unless ``device="cpu"`` is passed (or a kernel
+that lives on the CPU).
 
 PyTorch runs eagerly, so the JAX package's jitted closures become plain
 methods. Everything else the JAX model offers raises NotImplementedError
@@ -23,7 +29,11 @@ import torch
 
 from stpy_tpu_torch.config import as_tensor, default_jitter
 from stpy_tpu_torch.kernels import KernelFunction
-from stpy_tpu_torch.kernels.df_plan import df_atom_desc, df_gram_from_desc
+from stpy_tpu_torch.kernels.df_plan import (
+    df_atom_desc,
+    df_diag_from_desc,
+    df_gram_from_desc,
+)
 from stpy_tpu_torch.linalg import (
     cho_solve,
     cho_solve_blocked,
@@ -34,6 +44,7 @@ from stpy_tpu_torch.linalg import (
 )
 from stpy_tpu_torch.models.estimator import Estimator
 from stpy_tpu_torch.ops.gemv_df import gemv_df
+from stpy_tpu_torch.ops.qform_df import qform_refined
 
 
 class GaussianProcess(Estimator):
@@ -64,11 +75,6 @@ class GaussianProcess(Estimator):
                 "jitter_ladder='recompute' is ROADMAP Queue 1 item 13 (ported "
                 "once a memory measurement on the card shows the need)"
             )
-        if var_refine:
-            raise NotImplementedError(
-                "var_refine >= 1 needs the fused df quadratic form "
-                "(_qform_kernel), ROADMAP Queue 2 item 1"
-            )
         if fold_noise:
             raise NotImplementedError(
                 "fold_noise is ROADMAP Queue 1 item 13 (ported once a memory "
@@ -81,6 +87,7 @@ class GaussianProcess(Estimator):
         # var_precision and qform_precision pick TPU matmul pass counts;
         # they are accepted for signature parity and have no effect here
         self._precision = precision
+        self._var_refine = int(var_refine)   # any value >= 1 acts as 1
         self._jitter_ladder = jitter_ladder
         self.s = s
         self.d = d
@@ -118,7 +125,7 @@ class GaussianProcess(Estimator):
         self.device = self.kernel_object.device
         self.dtype = self.kernel_object.dtype
         self.kernel = self.kernel_object.kernel  # reference-convention callable
-        self.L = self.A = self._A_df = None
+        self.L = self.A = self._A_df = self._df_train = None
         self.fit_status = None
         self._df_desc = None
         if precision == "double":
@@ -185,7 +192,9 @@ class GaussianProcess(Estimator):
             alpha += cho_solve_blocked(L, r.to(self.dtype)).to(f64)
             a_h = alpha.to(self.dtype)
             a_l = (alpha - a_h.to(f64)).to(self.dtype)
-        return L, torch.cat([a_h, a_l], dim=1), ok, jitter
+        # the refined predict's quadratic form reads the train df Gram
+        df_train = (Kh, Kl) if self._var_refine else None
+        return L, torch.cat([a_h, a_l], dim=1), ok, jitter, df_train
 
     def _fit(self, x, y):
         if self._precision == "double":
@@ -199,12 +208,13 @@ class GaussianProcess(Estimator):
         self.x, self.y = x, y
         # release the previous fit's factors BEFORE computing the new ones:
         # holding the old (n, n) L across a refit adds a full n² to the peak
-        self.L = self.A = self._A_df = None
+        self.L = self.A = self._A_df = self._df_train = None
         self.fitted = False
         return x, y
 
-    def _store_fit(self, L, alpha, ok, jitter):
+    def _store_fit(self, L, alpha, ok, jitter, df_train=None):
         self.L = L
+        self._df_train = df_train
         if self._precision == "double":
             # alpha is an (n, 2) df pair; self.A keeps the (n, 1) hi column
             # for every single-precision consumer
@@ -259,6 +269,8 @@ class GaussianProcess(Estimator):
         return torch.sqrt(var)[:, None]
 
     def _predict(self, xtest):
+        if self._var_refine:
+            return self._predict_refined(xtest)
         ko, pd = self.kernel_object, self.kernel_object.params_dict
         kss = ko.diag(xtest, pd)
         if self._precision == "double":
@@ -273,6 +285,26 @@ class GaussianProcess(Estimator):
             mu = K_star @ self.A
             V = tri_solve_blocked(self.L, K_star.T)
         return mu, self._variance_std(kss, V)
+
+    def _predict_refined(self, xtest):
+        """var_refine >= 1: the variance from the fused df quadratic form
+        q = Σ W0 ⊙ (2B − (Th + Tl)·W0 − s²W0), whose error is second order
+        in W0's solve residual (ops/qform_df.py), so one f32 solve for W0
+        suffices. k** − q is formed in float64 where the JAX package needs
+        TwoSum."""
+        Kh, Kl = self._df_gram(xtest, self.x)                     # (t, n)
+        Mh, Ml = gemv_df(Kh, Kl, self._A_df[:, :1], vl=self._A_df[:, 1:])
+        mu = (Mh + Ml)[:, None]
+        ksh, ksl = df_diag_from_desc(self.kernel_object,
+                                     self.kernel_object.params_dict, xtest,
+                                     self._df_desc)
+        W0 = cho_solve_blocked(self.L, Kh.T)                      # (n, t)
+        Th, Tl = self._df_train
+        qh, ql = qform_refined(Th, Tl, W0, Kh.T, Kl.T, self.s)
+        del W0, Kh, Kl
+        f64 = torch.float64
+        var = (ksh.to(f64) + ksl.to(f64)) - (qh.to(f64) + ql.to(f64))
+        return mu, torch.sqrt(torch.clamp(var, min=1e-30)).to(self.dtype)[:, None]
 
     def _predict_full(self, xtest):
         ko, pd = self.kernel_object, self.kernel_object.params_dict

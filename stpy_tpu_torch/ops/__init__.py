@@ -13,12 +13,14 @@ import torch
 
 def kernel_wrappers() -> dict:
     """name -> wrapper, for every hand kernel of the port."""
-    from stpy_tpu_torch.ops import gemv_df, gram, gram_df
+    from stpy_tpu_torch.ops import gemv_df, gram, gram_df, gram_l1, qform_df
 
     return {
         "gram": gram.gram_scaled,
         "gram_df": gram_df.gram_df_scaled,
         "gemv_df": gemv_df.gemv_df,
+        "qform_df": qform_df.qform_refined_strip,
+        "gram_l1": gram_l1.gram_l1,
     }
 
 

@@ -98,7 +98,7 @@ def gram(x, y, *, family="se", gamma=1.0, kappa=1.0, nu=1.5):
     if family == "matern":
         return gram_matern(x, y, gamma, kappa, nu)
     if family == "laplace":
-        raise NotImplementedError(
-            "laplace Gram: the port of _gram_l1_kernel is ROADMAP Queue 2 item 5"
-        )
+        from stpy_tpu_torch.ops.gram_l1 import gram_laplace
+
+        return gram_laplace(x, y, gamma, kappa)
     raise NotImplementedError(family)

@@ -1,5 +1,6 @@
 """Port parity: the exact-GP slice of stpy_tpu_torch (GaussianProcess,
-single tier and double tier at var_refine=0) against stpy_tpu.
+single tier, double tier at var_refine=0 and at var_refine >= 1) against
+stpy_tpu.
 
 The same numpy data (fixed seed) goes through both packages on the CPU (JAX
 in x64, torch in float64), where every port wrapper runs its plain PyTorch
@@ -15,12 +16,14 @@ import torch
 
 import jax.numpy as jnp
 
+from stpy_tpu.kernels import df_plan as jax_df_plan
 from stpy_tpu.models import GaussianProcess as JaxGP
 from stpy_tpu_torch import GaussianProcess as TorchGP
 from stpy_tpu_torch.convert import load_fitted_state, params_from_jax
+from stpy_tpu_torch.kernels import df_plan
 from stpy_tpu_torch.ops import launch_counts
 
-from test_torch_port_gram import CASES, jax_kernel, torch_kernel
+from test_torch_port_gram import CASES, LAPLACE_CASES, jax_kernel, torch_kernel
 
 MEAN_RTOL, STD_RTOL, STATE_RTOL = 1e-8, 1e-6, 1e-10
 S = 0.1
@@ -88,6 +91,85 @@ def test_double_tier_fit_predict_matches_jax(data, case):
     assert torch.equal(tg.A, tg._A_df[:, :1])
 
 
+@pytest.mark.parametrize("case", CASES)
+def test_var_refine_fit_predict_matches_jax(data, case):
+    x, y, xt = data
+    jg, tg = gp_pair(case, precision="double", var_refine=1)
+    want = jg.fit_predict(jnp.asarray(x), jnp.asarray(y), jnp.asarray(xt))
+    assert_posterior_close(tg.fit_predict(x, y, xt), want)
+    # the train df Gram is kept for the quadratic form, as in the JAX GP
+    got = sum(k.numpy() for k in tg._df_train)
+    want = sum(np.asarray(k) for k in jg._df_train)
+    assert np.max(np.abs(got - want) / want) <= 1e-13
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_var_refine_fit_gp_then_mean_std_matches_jax(data, case):
+    x, y, xt = data
+    jg, tg = gp_pair(case, precision="double", var_refine=1)
+    jg.fit_gp(jnp.asarray(x), jnp.asarray(y))
+    tg.fit_gp(x, y)
+    assert_posterior_close(tg.mean_std(xt), jg.mean_std(jnp.asarray(xt)))
+
+
+def test_var_refine_above_one_acts_as_one(data):
+    x, y, xt = data
+    one = TorchGP(kernel=torch_kernel("se+matern32"), s=S, precision="double",
+                  var_refine=1).fit_predict(x, y, xt)
+    two = TorchGP(kernel=torch_kernel("se+matern32"), s=S, precision="double",
+                  var_refine=2).fit_predict(x, y, xt)
+    assert all(torch.equal(a, b) for a, b in zip(one, two))
+
+
+def test_var_refine_tightens_the_variance_over_var_refine_zero(data):
+    """Against a float64 posterior on the same f32-rounded Gram pair, the
+    refined variance is exact to the df floor while the var_refine=0
+    variance goes through the hi part only."""
+    x, y, xt = data
+    errs = {}
+    for vr in (0, 1):
+        tg = TorchGP(kernel=torch_kernel("matern32"), s=S, precision="double",
+                     var_refine=vr)
+        _, sd = tg.fit_predict(x, y, xt)
+        K = tg.kernel_object.cross(x, x).numpy() + S * S * np.eye(96)
+        Ks = tg.kernel_object.cross(xt, x).numpy()
+        var = 1.0 - np.einsum("tn,nt->t", Ks, np.linalg.solve(K, Ks.T))
+        errs[vr] = np.max(np.abs(sd.numpy()[:, 0] ** 2 - var) / var)
+    assert errs[1] <= 1e-9 < errs[0]
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_df_diag_from_desc_matches_jax(case):
+    xt = np.random.default_rng(9).uniform(-1, 1, (70, 3))
+    jk, tk = jax_kernel(case), torch_kernel(case)
+    jh, jl = jax_df_plan.df_diag_from_desc(
+        jk, jk.params_dict, jnp.asarray(xt), jax_df_plan.df_atom_desc(jk),
+        chunk=32)
+    th, tl = df_plan.df_diag_from_desc(
+        tk, tk.params_dict, torch.as_tensor(xt), df_plan.df_atom_desc(tk),
+        chunk=32)
+    got = th.double().numpy() + tl.double().numpy()
+    want = np.asarray(jh, np.float64) + np.asarray(jl, np.float64)
+    assert th.shape == (70,) and np.max(np.abs(got - want) / want) <= 1e-13
+
+
+@pytest.mark.parametrize("case", LAPLACE_CASES)
+def test_laplace_single_tier_matches_jax(data, case):
+    x, y, xt = data
+    jg, tg = gp_pair(case)
+    want = jg.fit_predict(jnp.asarray(x), jnp.asarray(y), jnp.asarray(xt))
+    assert_posterior_close(tg.fit_predict(x, y, xt), want)
+    jg.fit_gp(jnp.asarray(x), jnp.asarray(y))
+    tg.fit_gp(x, y)
+    assert_posterior_close(tg.mean_std(xt), jg.mean_std(jnp.asarray(xt)))
+
+
+@pytest.mark.parametrize("case", LAPLACE_CASES)
+def test_double_tier_laplace_raises_naming_the_roadmap(case):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 3"):
+        TorchGP(kernel=torch_kernel(case), s=S, precision="double")
+
+
 def test_double_tier_fit_gp_then_mean_std_matches_jax(data):
     x, y, xt = data
     jg, tg = gp_pair("ard*matern52", precision="double", df_refine_steps=2)
@@ -96,20 +178,33 @@ def test_double_tier_fit_gp_then_mean_std_matches_jax(data):
     assert_posterior_close(tg.mean_std(xt), jg.mean_std(jnp.asarray(xt)))
 
 
-@pytest.mark.parametrize("precision", ["single", "double"])
-def test_mean_std_on_loaded_jax_state(data, precision):
+@pytest.mark.parametrize("precision,var_refine", [
+    ("single", 0), ("double", 0), ("double", 1)])
+def test_mean_std_on_loaded_jax_state(data, precision, var_refine):
     x, y, xt = data
-    jg = JaxGP(kernel=jax_kernel("se+matern32"), s=S, precision=precision)
+    kw = dict(s=S, precision=precision, var_refine=var_refine)
+    jg = JaxGP(kernel=jax_kernel("se+matern32"), **kw)
     jg.fit_gp(jnp.asarray(x), jnp.asarray(y))
-    tg = TorchGP(kernel=torch_kernel("se+matern32"), s=S, precision=precision)
+    tg = TorchGP(kernel=torch_kernel("se+matern32"), **kw)
     tg.kernel_object.set_params(params_from_jax(
         {k: {n: np.asarray(v) for n, v in p.items()}
          for k, p in jg.kernel_object.params_dict.items()}))
-    load_fitted_state(tg, np.asarray(jg.x), np.asarray(jg.y), np.asarray(jg.L),
-                      np.asarray(jg.A),
-                      A_df=None if jg._A_df is None else np.asarray(jg._A_df))
+    load_fitted_state(
+        tg, np.asarray(jg.x), np.asarray(jg.y), np.asarray(jg.L),
+        np.asarray(jg.A),
+        A_df=None if jg._A_df is None else np.asarray(jg._A_df),
+        df_train=(None if jg._df_train is None
+                  else [np.asarray(k) for k in jg._df_train]))
     assert_posterior_close(tg.mean_std(xt), jg.mean_std(jnp.asarray(xt)),
                            STATE_RTOL, STATE_RTOL)
+
+
+def test_loading_a_var_refine_state_needs_the_train_df_gram(data):
+    x, y, _ = data
+    tg = TorchGP(kernel=torch_kernel("se"), s=S, precision="double",
+                 var_refine=1)
+    with pytest.raises(ValueError, match="df_train"):
+        load_fitted_state(tg, x, y, np.eye(96), y, A_df=np.zeros((96, 2)))
 
 
 def test_params_from_jax_keeps_float64_values():
@@ -185,13 +280,12 @@ def test_refit_releases_previous_fit(data):
 @pytest.mark.parametrize("kwargs,method", [
     (dict(jitter_ladder="recompute"), None),
     (dict(loss="huber"), None),
-    (dict(precision="double", var_refine=1), None),
     (dict(precision="double", fold_noise=True, jitter_ladder=False), None),
     ({}, "sample"),
     ({}, "log_marginal"),
     ({}, "optimize_params"),
     ({}, "ucb_optimize"),
-], ids=["recompute", "robust-loss", "var_refine", "fold_noise", "sample",
+], ids=["recompute", "robust-loss", "fold_noise", "sample",
         "log_marginal", "optimize_params", "ucb_optimize"])
 def test_unported_paths_raise_naming_the_roadmap(kwargs, method):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -204,7 +298,11 @@ def test_unported_paths_raise_naming_the_roadmap(kwargs, method):
 def test_cpu_tensors_leave_every_launch_counter_at_zero(data):
     x, y, xt = data
     before = launch_counts()
-    for precision in ("single", "double"):
-        TorchGP(kernel=torch_kernel("se+matern32", dtype=torch.float32), s=S,
-                precision=precision).fit_predict(x, y, xt)
-    assert launch_counts() == before == {"gram": 0, "gram_df": 0, "gemv_df": 0}
+    for case, kw in (("se+matern32", dict(precision="single")),
+                     ("se+matern32", dict(precision="double")),
+                     ("se+matern32", dict(precision="double", var_refine=1)),
+                     ("laplace", dict(precision="single"))):
+        TorchGP(kernel=torch_kernel(case, dtype=torch.float32), s=S,
+                **kw).fit_predict(x, y, xt)
+    assert launch_counts() == before == {
+        "gram": 0, "gram_df": 0, "gemv_df": 0, "qform_df": 0, "gram_l1": 0}

@@ -34,6 +34,9 @@ ATOMS = {
 }
 # every fused atom, one `+` and one `*` composite
 CASES = list(ATOMS) + ["se+matern32", "ard*matern52"]
+# the L1 atom has no double tier, so it is kept out of ATOMS and CASES
+LAPLACE = dict(kernel_name="laplace", gamma=0.8, kappa=1.2)
+LAPLACE_CASES = ["laplace", "laplace+se", "matern32*laplace"]
 
 
 def make_kernel(cls, case, d=3, **kw):
@@ -42,7 +45,7 @@ def make_kernel(cls, case, d=3, **kw):
             a, b = case.split(op)
             ka, kb = make_kernel(cls, a, d, **kw), make_kernel(cls, b, d, **kw)
             return ka + kb if op == "+" else ka * kb
-    return cls(d=d, **ATOMS[case], **kw)
+    return cls(d=d, **{**ATOMS, "laplace": LAPLACE}[case], **kw)
 
 
 def jax_kernel(case):
@@ -50,7 +53,7 @@ def jax_kernel(case):
 
 
 def torch_kernel(case, dtype=torch.float64):
-    return make_kernel(TorchKernel, case, dtype=dtype)
+    return make_kernel(TorchKernel, case, dtype=dtype, device="cpu")
 
 
 def rel_err(got, want):
@@ -64,7 +67,7 @@ def points():
     return rng.uniform(-1, 1, (40, 3)), rng.uniform(-1, 1, (23, 3))
 
 
-@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("case", CASES + LAPLACE_CASES)
 def test_cross_matches_jax(points, case):
     a, b = points
     want = jax_kernel(case).cross(jnp.asarray(a), jnp.asarray(b))
@@ -73,7 +76,7 @@ def test_cross_matches_jax(points, case):
     assert rel_err(got.numpy(), want) <= GRAM_RTOL
 
 
-@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("case", CASES + LAPLACE_CASES)
 def test_gram_and_diag_match_jax(points, case):
     a, _ = points
     jk, tk = jax_kernel(case), torch_kernel(case)
@@ -116,9 +119,21 @@ def test_grouped_atoms_match_jax(points):
           + JaxKernel(kernel_name="ard", ard_gamma=[0.4, 0.9, 1.3], d=3,
                       group=[1]))
     tk = (TorchKernel(kernel_name="squared_exponential", gamma=0.5, d=3,
-                      group=[0, 2], dtype=torch.float64)
+                      group=[0, 2], dtype=torch.float64, device="cpu")
           + TorchKernel(kernel_name="ard", ard_gamma=[0.4, 0.9, 1.3], d=3,
-                        group=[1], dtype=torch.float64))
+                        group=[1], dtype=torch.float64, device="cpu"))
+    want = jk.cross(jnp.asarray(a), jnp.asarray(b))
+    assert rel_err(tk.cross(a, b).numpy(), want) <= GRAM_RTOL
+
+
+def test_grouped_laplace_atom_matches_jax(points):
+    a, b = points
+    jk = (JaxKernel(kernel_name="laplace", gamma=0.6, d=3, group=[0, 2])
+          * JaxKernel(kernel_name="matern", gamma=0.9, nu=2.5, d=3, group=[1]))
+    tk = (TorchKernel(kernel_name="laplace", gamma=0.6, d=3, group=[0, 2],
+                      dtype=torch.float64, device="cpu")
+          * TorchKernel(kernel_name="matern", gamma=0.9, nu=2.5, d=3,
+                        group=[1], dtype=torch.float64, device="cpu"))
     want = jk.cross(jnp.asarray(a), jnp.asarray(b))
     assert rel_err(tk.cross(a, b).numpy(), want) <= GRAM_RTOL
 
@@ -133,15 +148,36 @@ def test_hyperparameters_are_float64_on_the_kernel_device():
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(kernel_name="laplace"),
     dict(kernel_name="polynomial"),
     dict(kernel_name="matern", nu=2.2),
     dict(kernel_name="ard", groups=[[0], [1, 2]]),
     dict(kernel_function=lambda p, a, b: a @ b.T),
-], ids=["laplace", "polynomial", "matern-general-nu", "ard-groups", "custom"])
+], ids=["polynomial", "matern-general-nu", "ard-groups", "custom"])
 def test_unported_kernels_raise_naming_the_roadmap(kwargs):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TorchKernel(d=3, **kwargs)
+        TorchKernel(d=3, device="cpu", **kwargs)
+
+
+def test_no_device_means_the_card_and_never_the_cpu():
+    """Without CUDA, a kernel or GP built with no `device` raises instead
+    of quietly returning a CPU object."""
+    from stpy_tpu_torch import GaussianProcess
+
+    if torch.cuda.is_available():
+        pytest.skip("CUDA is present: the default device is the card")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TorchKernel(d=3)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        GaussianProcess(d=3)
+    assert TorchKernel(d=3, device="cpu").device == torch.device("cpu")
+
+
+def test_default_device_resolves_to_cuda(monkeypatch):
+    from stpy_tpu_torch.config import resolve_device
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert resolve_device() == torch.device("cuda")
+    assert resolve_device("cpu") == torch.device("cpu")
 
 
 def test_f32_gram_on_cpu_matches_f64(points):
@@ -180,7 +216,8 @@ def test_build_command_targets_sm90a_and_every_source():
     i = cmd.index("-gencode")
     assert cmd[i + 1] == "arch=compute_90a,code=sm_90a"
     names = {Path(c).name for c in cmd if c.endswith(".cu")}
-    assert names == {"gram.cu", "gram_df.cu", "gemv_df.cu"}
+    assert names == {"gram.cu", "gram_df.cu", "gemv_df.cu", "gram_l1.cu",
+                     "qform_df.cu"}
     assert {"-shared", "-O3", "-std=c++17"} <= set(cmd)
     assert _build.library_path().parent.parent == _build.BUILD_ROOT
 
