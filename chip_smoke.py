@@ -9,10 +9,16 @@ path (GaussianProcess.fit_predict) at n = ntest = 16384, d = 8 with the data
 of bench.py in four tiers -- single (SE), double at var_refine=0 (SE),
 double at var_refine=1 (SE and Matérn-3/2) and single with the Laplace
 kernel -- checks each posterior against a float64 computation by plain
-torch.linalg on the card, shows through the launch counters (zeroed just
-before each tier's run and read just after) that each tier went through its
-kernels, and times every tier and every kernel. With --profile it also
-traces one warm fit_predict of the single, double and var_refine tiers with
+torch.linalg on the card, then drives the matrix-free large-n path
+(parallel.IterativeGP(lazy=True), CG on the gram_matvec / gram_matmat
+kernels) on the SE(0.5) + Matérn-3/2(0.8) sum kernel: at n = 32768 against
+a dense float64 posterior (single and double precision), and at n = 65536
+(benchmarks/exp_r4_65k_var.py) on constructor defaults, then with a
+rank-2048 preconditioner held to its float64 residual. The launch
+counters, zeroed just before each tier's run and read just after, show
+that each tier went through its kernels; every tier and every kernel is
+timed. With --profile it also traces one warm fit_predict
+of the single, double and var_refine tiers and one warm 65k lazy fit with
 torch.profiler: device busy time and idle share, host time, peak memory,
 and the kernels that take the time. Every phase asserts; any failure exits
 non-zero.
@@ -42,7 +48,13 @@ from stpy_tpu_torch.ops.gemv_df import gemv_df, gemv_df_plain
 from stpy_tpu_torch.ops.gram import gram_plain, gram_scaled
 from stpy_tpu_torch.ops.gram_df import gram_df_plain, gram_df_scaled
 from stpy_tpu_torch.ops.gram_l1 import gram_l1, gram_l1_plain
+from stpy_tpu_torch.ops.gram_matvec import (
+    gram_matmat_plain, gram_matmat_scaled, gram_matvec_plain,
+    gram_matvec_scaled,
+)
 from stpy_tpu_torch.ops.qform_df import qform_df_plain, qform_refined_strip
+from stpy_tpu_torch.parallel import IterativeGP
+from stpy_tpu_torch.parallel import iterative
 
 N = NTEST = 16384
 D = 8
@@ -94,6 +106,39 @@ REFINED_VAR_MAX_RTOL = 1e-6
 # above it, and phase 2 holds the kernel itself at 1e-6.
 LAPLACE_MEAN_RTOL = 1e-3
 
+# The matrix-free tier (parallel.IterativeGP, lazy=True) on the sum kernel of
+# benchmarks/exp_r4_65k_var.py: SE(0.5) + Matérn-3/2(0.8), d = 8, s = 0.2;
+# (family, nu, gamma) of each atom, kappa = 1.
+LAZY_ATOMS = (("se", 1.5, 0.5), ("matern", 1.5, 0.8))
+LAZY_S = 0.2
+LAZY_N, LAZY_BIG_N, LAZY_T = 32768, 65536, 1024
+MATMAT_R = 128                   # the block CG's right-hand sides
+RAGGED_R = (77, 200)             # a partial slab, and a second one
+EPS32 = 2.0 ** -23
+# gram_matvec / gram_matmat against their plain versions run in float64 on
+# the same f32 inputs, error over sum_j |K_ij| |v_j|: the kernel sums m f32
+# terms and each term's sq carries a few ulps of |x|^2 + |y|^2, about
+# sqrt(m)·eps32 of that scale together; the bar is twice it.
+def matvec_rtol(m):
+    return 2.0 * math.sqrt(m) * EPS32
+
+
+# lazy-tier bars against float64: at n = 32768 the single tier's mean 1e-3
+# and variance max 1e-2 (both above the f32 CG floor, ~sqrt(n)·eps32), the
+# double tier's mean 1e-6 (the ROADMAP's 1e-7 printed beside); at n = 65536
+# the exact relative residual of the fit's alpha, float64, 1e-4.
+LAZY_MEAN_RTOL, LAZY_VAR_RTOL, LAZY_DOUBLE_MEAN_RTOL = 1e-3, 1e-2, 1e-6
+LAZY_RESIDUAL_MAX = 1e-4
+# at n = 65536 mean_std runs on all t = 1024 test points when four times
+# its wall on the first 256 stays under this many seconds, else on 256
+LAZY_BIG_MEAN_STD_S = 60.0
+# At n = 65536 the defaults' rank-512 preconditioner leaves the segmented
+# CG at maxiter = 500 with relative residual ~4e-4, above the 1e-4 bar
+# (PERF.md §6). Phase 9 runs the defaults once and prints that, then
+# serves with the one knob the fit's warning names, precond_rank, at 2048:
+# the f32 floor in ~400 iterations, in less time than the defaults' 500.
+LAZY_BIG_RANK = 2048
+
 REPLACES = {
     "gram": ("stpy_tpu_torch/csrc/gram.cu", "stpy_tpu/ops/pallas_gram.py:63"),
     "gram_df": ("stpy_tpu_torch/csrc/gram_df.cu",
@@ -104,13 +149,24 @@ REPLACES = {
                  "stpy_tpu/ops/pallas_qform_df.py:60"),
     "gram_l1": ("stpy_tpu_torch/csrc/gram_l1.cu",
                 "stpy_tpu/ops/pallas_gram.py:209"),
+    "gram_matvec": ("stpy_tpu_torch/csrc/gram_matvec.cu",
+                    "stpy_tpu/ops/pallas_gram_matvec.py:85"),
+    "gram_matmat": ("stpy_tpu_torch/csrc/gram_matmat.cu",
+                    "stpy_tpu/ops/pallas_gram_matvec.py:161"),
 }
 # H100 SXM data-sheet peaks, dense: HBM3 bytes/s, f32 outside the tensor
 # cores, FP64 outside them and FP64 on the tensor cores (flop/s)
 HBM_BPS, F32_FLOPS, F64_FLOPS, F64_MMA_FLOPS = 3.35e12, 67e12, 34e12, 67e12
-# the cuSOLVER / cuBLAS stages of stpy_tpu_torch/linalg.py (phase 8 split)
+# special-function unit (exp, sqrt): 16 results per clock per SM, 132 SMs at
+# the 1.98 GHz boost clock of the SXM part
+SFU_OPS = 16 * 132 * 1.98e9
+# the cuSOLVER / cuBLAS stages of the profiled paths (phase 10 split):
+# stpy_tpu_torch/linalg.py, and the preconditioner's QR and eigh
 LINALG_OPS = ("aten::linalg_cholesky_ex", "aten::cholesky_solve",
-              "aten::linalg_solve_triangular")
+              "aten::linalg_solve_triangular", "aten::linalg_qr",
+              "aten::linalg_eigh")
+# the device-to-host scalar reads of the CG loops (one per iteration)
+HOST_READ_OPS = ("aten::_local_scalar_dense",)
 
 
 def card_line() -> str:
@@ -121,13 +177,15 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def bench_data(dev):
-    """The data of bench.py:32-38 (numpy seed 0), on `dev` in f32."""
+def bench_data(dev, n=N, ntest=NTEST, noise=0.1):
+    """The data of bench.py:32-38 (numpy seed 0), on `dev` in f32: x and
+    xt ~ U(-1, 1)^d, y = sin(3 x_0) + noise·ε. benchmarks/exp_r4_65k_var.py
+    draws the same with noise 0.05."""
     rng = np.random.default_rng(0)
-    x = rng.uniform(-1, 1, (N, D)).astype(np.float32)
-    y = (np.sin(3 * x[:, :1]) + 0.1 * rng.standard_normal((N, 1))).astype(
+    x = rng.uniform(-1, 1, (n, D)).astype(np.float32)
+    y = (np.sin(3 * x[:, :1]) + noise * rng.standard_normal((n, 1))).astype(
         np.float32)
-    xt = rng.uniform(-1, 1, (NTEST, D)).astype(np.float32)
+    xt = rng.uniform(-1, 1, (ntest, D)).astype(np.float32)
     return tuple(torch.as_tensor(a, device=dev) for a in (x, y, xt))
 
 
@@ -174,6 +232,21 @@ def gram_bounds(n, m, d):
         "gram_l1": bound(4 * (n + m) * d + 4 * n * m, (3 * d + 2) * n * m,
                          F32_FLOPS),
     }
+
+
+def matvec_bound(n, m, d, family, r=None):
+    """gram_matvec (r = None) or gram_matmat with r columns: x, y and the
+    right side read once, the output written once; per (i, j) pair 2d f32
+    operations for the squared distance, the shape (SE: 2 and one exp;
+    Matérn-3/2: 4, one sqrt and one exp) and 2 per column of the product
+    over F32_FLOPS, against the exps and sqrts over SFU_OPS; the larger of
+    the two is the operations' time."""
+    cols = 1 if r is None else r
+    shape_ops, sfu = (2, 1) if family == "se" else (4, 2)
+    t_bytes = 4 * ((n + m) * d + (n + m) * cols) / HBM_BPS * 1e3
+    t_ops = n * m * max((2 * d + shape_ops + 2 * cols) / F32_FLOPS,
+                        sfu / SFU_OPS) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def qform_bound(c, n, t):
@@ -333,6 +406,91 @@ def qform_checks(dev, x, xt):
     return err, (k_ms, p_ms, g_ms)
 
 
+def matvec_error(kernel_fn, xs, ys, V, fam, nu):
+    """(max |Δ|, max |Δ| / scale) of a matrix-free product against its plain
+    version in float64 on the same f32 inputs, scale = K·|V| = Σ_j |K_ij||V_j|
+    (K > 0); two launches must give the same bits. V is (m,) or (m, r)."""
+    out = kernel_fn(xs, ys, V, 1.0, fam, nu)
+    again = kernel_fn(xs, ys, V, 1.0, fam, nu)
+    assert torch.equal(out, again), "two launches gave different bits"
+    V64 = V.double().reshape(V.shape[0], -1)
+    both = gram_matmat_plain(xs.double(), ys.double(),
+                             torch.cat([V64, V64.abs()], dim=1), 1.0, fam, nu)
+    ref, scale = both[:, :V64.shape[1]], both[:, V64.shape[1]:]
+    diff = (out.double().reshape(ref.shape) - ref).abs()
+    return float(diff.max()), float((diff / scale).max())
+
+
+def matvec_checks(dev):
+    """Phase 2c: gram_matvec and gram_matmat against their plain versions
+    (error over Σ_j |K_ij||v_j|, bar `matvec_rtol`), bitwise repeatable, for
+    each atom of the lazy tiers' kernel (SE γ = 0.5, Matérn-3/2 γ = 0.8): a
+    ragged shape (r = 77 and 200), the bench shape n = m = 16384 and the
+    65k lazy tier's shape, r = 128, on the fit's own operator K(x, x).
+    Returns name -> max abs error; the SE timings at 16k and 65k (kernel,
+    plain f32); cuBLAS SGEMM of the materialised 16k Gram by a 128-column
+    block (not the same function)."""
+    rng = np.random.default_rng(3)
+    err = {"gram_matvec": 0.0, "gram_matmat": 0.0}
+    times = {}
+    sgemm_ms = None
+    for label, (n, m, d) in (("ragged", RAGGED), ("16k", (N, N, D)),
+                             ("65k", (LAZY_BIG_N, LAZY_BIG_N, D))):
+        x = rng.uniform(-1, 1, (n, d))
+        y = x if label != "ragged" else rng.uniform(-1, 1, (m, d))
+        v = torch.as_tensor(rng.standard_normal(m), dtype=torch.float32,
+                            device=dev)
+        rs = RAGGED_R if label == "ragged" else (MATMAT_R,)
+        Vs = [torch.as_tensor(rng.standard_normal((m, r)), dtype=torch.float32,
+                              device=dev) for r in rs]
+        for fam, nu, gamma in LAZY_ATOMS:
+            xs = torch.as_tensor(x / gamma, dtype=torch.float32, device=dev)
+            ys = xs if y is x else torch.as_tensor(
+                y / gamma, dtype=torch.float32, device=dev)
+            e, rel = matvec_error(gram_matvec_scaled, xs, ys, v, fam, nu)
+            print(f"  gram_matvec {label:6s} {fam:6s} {n}x{m} d={d}: max abs "
+                  f"err {e!r}, max err / sum|K||v| {rel!r} (bar "
+                  f"{matvec_rtol(m)!r}), repeatable")
+            assert rel <= matvec_rtol(m), ("gram_matvec", label, fam, rel)
+            err["gram_matvec"] = max(err["gram_matvec"], e)
+            for V in Vs:
+                e, rel = matvec_error(gram_matmat_scaled, xs, ys, V, fam, nu)
+                print(f"  gram_matmat {label:6s} {fam:6s} {n}x{m} d={d} "
+                      f"r={V.shape[1]}: max abs err {e!r}, max err / "
+                      f"sum|K||V| {rel!r} (bar {matvec_rtol(m)!r}), "
+                      "repeatable")
+                assert rel <= matvec_rtol(m), ("gram_matmat", label, fam, rel)
+                err["gram_matmat"] = max(err["gram_matmat"], e)
+            if label == "ragged" or fam != "se":
+                continue
+            V = Vs[0]
+            times[label] = {
+                "gram_matvec": timed_pair(
+                    lambda: gram_matvec_scaled(xs, ys, v, 1.0, fam, nu),
+                    lambda: gram_matvec_plain(xs, ys, v, 1.0, fam, nu),
+                    reps=3),
+                "gram_matmat": timed_pair(
+                    lambda: gram_matmat_scaled(xs, ys, V, 1.0, fam, nu),
+                    lambda: gram_matmat_plain(xs, ys, V, 1.0, fam, nu),
+                    reps=3),
+            }
+            for name, r in (("gram_matvec", None), ("gram_matmat", MATMAT_R)):
+                k_ms, p_ms = times[label][name]
+                b_ms, b_by = matvec_bound(n, m, d, fam, r)
+                print(f"  {name} {label} SE: kernel {k_ms!r} ms, plain "
+                      f"{p_ms!r} ms, bound {b_ms!r} ms ({b_by}; Matérn-3/2: "
+                      f"{matvec_bound(n, m, d, 'matern', r)[0]!r} ms)")
+            if label == "16k":
+                K = gram_scaled(xs, ys, 1.0, fam, nu)
+                sgemm_ms = cuda_ms(lambda: K @ V, reps=3)
+                print(f"  cuBLAS SGEMM of the materialised {n}x{m} Gram by "
+                      f"({m}, {MATMAT_R}) (not the same function): "
+                      f"{sgemm_ms!r} ms")
+                del K
+            torch.cuda.empty_cache()
+    return err, times, sgemm_ms
+
+
 def kernel_matrix(family, gamma, a, b):
     """k(a_i, b_j) in float64 by plain torch ops: SE, Matérn-3/2 (γ-scaled
     euclidean distances) or Laplace (L1 distance over γ²)."""
@@ -342,19 +500,34 @@ def kernel_matrix(family, gamma, a, b):
     sq = ((a * a).sum(1)[:, None] + (b * b).sum(1)[None, :]
           - 2.0 * a @ b.T).clamp_min_(0.0)
     if family == "se":
-        return torch.exp(-0.5 * sq)
-    r = math.sqrt(3.0) * sq.sqrt_()
-    return (1.0 + r) * torch.exp(-r)
+        return sq.mul_(-0.5).exp_()
+    r = sq.sqrt_().mul_(math.sqrt(3.0))
+    return torch.exp(-r).mul_(r.add_(1.0))
 
 
-def reference_f64(x, y, xt, family="se", gamma=GAMMA, f32_floor=False):
+def lazy_kernel_matrix(a, b):
+    """The lazy tiers' sum kernel in float64, one atom's Gram at a time."""
+    K = None
+    for fam, _, gamma in LAZY_ATOMS:
+        Ka = kernel_matrix(fam, gamma, a, b)
+        K = Ka if K is None else K.add_(Ka)
+        del Ka
+    return K
+
+
+def reference_f64(x, y, xt, family="se", gamma=GAMMA, f32_floor=False,
+                  s=S, kern=None, prior_var=1.0):
     """Exact posterior mean and variance in float64 by plain torch.linalg
-    (no kernels of the port, no jitter). With `f32_floor`, also the max
-    relative error of the posterior mean that f32 Cholesky and solves by
-    plain torch.linalg reach on the float64 Gram rounded to f32."""
+    (no kernels of the port, no jitter) for the kernel `kern(a, b)`, by
+    default `kernel_matrix` of `family` and `gamma`. With `f32_floor`, also
+    the max relative error of the posterior mean that f32 Cholesky and
+    solves by plain torch.linalg reach on the float64 Gram rounded to f32."""
+    if kern is None:
+        def kern(a, b):
+            return kernel_matrix(family, gamma, a, b)
     x64, y64, xt64 = x.double(), y.double(), xt.double()
-    K = kernel_matrix(family, gamma, x64, x64)
-    K.diagonal().add_(S * S)
+    K = kern(x64, x64)
+    K.diagonal().add_(s * s)
     floor = None
     if f32_floor:
         L32 = torch.linalg.cholesky(K.float())
@@ -363,23 +536,27 @@ def reference_f64(x, y, xt, family="se", gamma=GAMMA, f32_floor=False):
     L = torch.linalg.cholesky(K)
     del K
     alpha = torch.cholesky_solve(y64, L)
-    Ks = kernel_matrix(family, gamma, xt64, x64)
+    Ks = kern(xt64, x64)
     mu = Ks @ alpha
     if f32_floor:
         mu32 = (Ks.float() @ a32).double()
         floor = float((mu32 - mu).abs().max() / mu.abs().max())
     V = torch.linalg.solve_triangular(L, Ks.T, upper=False)
     del Ks, L
-    var = 1.0 - V.square_().sum(0)
+    var = prior_var - V.square_().sum(0)
     return mu[:, 0], var, floor
 
 
+def mean_error(mu, mu64):
+    assert mu.shape == (mu64.shape[0], 1), mu.shape
+    assert bool(torch.isfinite(mu).all())
+    return float((mu[:, 0].double() - mu64).abs().max() / mu64.abs().max())
+
+
 def posterior_errors(mu, sd, mu64, var64):
-    assert mu.shape == (NTEST, 1) and sd.shape == (NTEST, 1), (mu.shape, sd.shape)
-    assert bool(torch.isfinite(mu).all() and torch.isfinite(sd).all())
-    mean_rel = float((mu[:, 0].double() - mu64).abs().max() / mu64.abs().max())
+    assert sd.shape == mu.shape and bool(torch.isfinite(sd).all()), sd.shape
     vrel = ((sd[:, 0].double() ** 2 - var64).abs() / var64).cpu()
-    return mean_rel, float(vrel.max()), float(vrel.median())
+    return mean_error(mu, mu64), float(vrel.max()), float(vrel.median())
 
 
 def run_tier(kernel, x, y, xt, **gp_kw):
@@ -405,26 +582,86 @@ def wall_median(gp, x, y, xt, reps=3) -> float:
     return float(np.median(times))
 
 
-def profile_tier(kernel, label, x, y, xt, top=10, **gp_kw):
-    """Phase 8 (--profile): one warm fit_predict of a fresh GP under
-    torch.profiler. Prints the device busy time (union of all device
-    activity), the device span, the idle share of that span, the host time
-    until fit_predict returns (before the closing synchronize), the peak
-    device memory of the call, the `top` kernels by device time, and the
-    device time of each linalg stage (LINALG_OPS)."""
+def lazy_kernel(dev):
+    """The lazy tiers' KernelFunction: SE(0.5) + Matérn-3/2(0.8), d = 8."""
+    (_, _, g_se), (_, nu, g_m) = LAZY_ATOMS
+    return (KernelFunction(kernel_name="squared_exponential", gamma=g_se,
+                           d=D, device=dev)
+            + KernelFunction(kernel_name="matern", gamma=g_m, nu=nu, d=D,
+                             device=dev))
+
+
+def counted(fn):
+    """fn() with the launch counters zeroed just before and read just
+    after: (result, host wall in s up to the closing synchronize, counts).
+    The warnings fn raises (CG at its f32 floor) are printed, not lost."""
+    import warnings
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+    for w in caught:
+        print(f"  warning: {w.message}")
+    return out, wall, counts
+
+
+def precond_basis_check(kernel, x, matmat, rank=512):
+    """The rank-`rank` Rayleigh-Nyström basis of `rayleigh_nystrom_precond`
+    on these points, its small eigh once in f32 and once in float64 (what
+    `parallel.iterative._eigh64` does): per variant, the orthonormality
+    error of U = Q·V and the least u_iᵀM⁻¹u_i over U's columns, which must
+    stay > 0 for the apply to be SPD. Returns {variant: (error, least)}."""
+    idx = torch.randperm(x.shape[0], generator=torch.Generator().manual_seed(0))
+    C = kernel.eval_params(kernel.params_dict, x, x[idx[:rank].to(x.device)])
+    Q, _ = torch.linalg.qr(C)
+    Q, _ = torch.linalg.qr(Q)
+    T = Q.T @ iterative._blocked_k_apply(matmat, LAZY_S, 128)(Q)
+    T = 0.5 * (T + T.T)
+    eye = torch.eye(rank, dtype=torch.float64, device=x.device)
+    out = {}
+    for label, (lam, V) in (("f32 eigh", torch.linalg.eigh(T)),
+                            ("float64 eigh", iterative._eigh64(T))):
+        U = Q @ V
+        M = iterative._eigenform_apply(U, lam, LAZY_S)
+        err = float((U.double().T @ U.double() - eye).abs().max())
+        out[label] = (err, float(torch.sum(U * M(U), 0).min()))
+    return out
+
+
+def exact_residual(x, y, alpha):
+    """‖y − (K + s²I)α‖/‖y‖ of the lazy tiers' system in float64, K·α by
+    the plain matvec one row chunk at a time (never the kernels under test)."""
+    a64, y64 = alpha.double().reshape(-1), y.double().reshape(-1)
+    r = y64 - LAZY_S * LAZY_S * a64
+    for fam, nu, gamma in LAZY_ATOMS:
+        xs = x.double() / gamma
+        r -= gram_matvec_plain(xs, xs, a64, 1.0, fam, nu)
+    return float(torch.linalg.vector_norm(r) / torch.linalg.vector_norm(y64))
+
+
+def profile_run(label, run, top=10):
+    """Phase 10 (--profile): one warm call of `run` under torch.profiler.
+    Prints the device busy time (union of all device activity), the device
+    span, the idle share of that span, the host time until `run` returns
+    (before the closing synchronize), the peak device memory of the call,
+    the `top` kernels by device time, each hand kernel's time and launches,
+    the device time of each linalg stage (LINALG_OPS) and the count and host
+    time of the CG loops' device-to-host scalar reads (HOST_READ_OPS)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    gp = GaussianProcess(kernel=kernel, s=S, **gp_kw)
-    gp.fit_predict(x, y, xt)
     torch.cuda.synchronize()
-    # the refit releases the previous factors before it allocates (see
-    # GaussianProcess._set_data), so the peak is the call's own plus the data
     torch.cuda.reset_peak_memory_stats()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        gp.fit_predict(x, y, xt)
+        run()
         host_ms = (time.perf_counter() - t0) * 1e3
         torch.cuda.synchronize()
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
@@ -444,22 +681,37 @@ def profile_tier(kernel, label, x, y, xt, top=10, **gp_kw):
           f"{host_ms!r} ms to return, peak device memory {peak_gib!r} GiB")
     for name, (t, c) in sorted(per_name.items(), key=lambda kv: -kv[1][0])[:top]:
         print(f"    {t / 1e3:10.3f} ms  x{c:<4d} {name[:100]}")
-    for kname in REPLACES:
-        hits = [tc for name, tc in per_name.items() if f"{kname}_kernel" in name]
-        print(f"    hand kernel {kname}: {sum(t for t, _ in hits) / 1e3!r} ms "
-              f"over {sum(c for _, c in hits)} launches")
+    for kname in (*REPLACES, "geqrf", "orgqr"):
+        hits = [tc for name, tc in per_name.items() if f"{kname}_kernel" in name
+                or kname in ("geqrf", "orgqr") and kname in name]
+        if hits:
+            print(f"    kernel {kname}: {sum(t for t, _ in hits) / 1e3!r}"
+                  f" ms over {sum(c for _, c in hits)} launches")
     # device time of every kernel launched inside each linalg op of the path
     for avg in prof.key_averages():
         if avg.key in LINALG_OPS:
             print(f"    {avg.key}: {avg.device_time_total / 1e3!r} ms device "
                   f"over {avg.count} calls")
+        if avg.key in HOST_READ_OPS:
+            print(f"    {avg.key} (host reads): {avg.count} calls, "
+                  f"{avg.cpu_time_total / 1e3!r} ms host")
+
+
+def profile_tier(kernel, label, x, y, xt, **gp_kw):
+    """One warm fit_predict of a fresh GP under `profile_run`. The refit
+    releases the previous factors before it allocates (see
+    GaussianProcess._set_data), so the peak is the call's own plus the data."""
+    gp = GaussianProcess(kernel=kernel, s=S, **gp_kw)
+    gp.fit_predict(x, y, xt)
+    profile_run(label, lambda: gp.fit_predict(x, y, xt))
 
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
         "--profile", action="store_true",
-        help="also profile one warm fit_predict per tier (phase 8)")
+        help="also profile one warm fit_predict per dense tier and one "
+             "warm 65k lazy fit (phase 10)")
     profile = parser.parse_args(argv).profile
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -482,6 +734,13 @@ def main(argv=None) -> int:
     errs["qform_df"], qtimes = qform_checks(dev, x, xt)
     ktimes["qform_df"] = qtimes[:2]
     bounds = ktimes.pop("bounds") | {"qform_df": qform_bound(N, N, NTEST)}
+    errs_mv, mv_times, sgemm_ms = matvec_checks(dev)
+    errs |= errs_mv
+    # the record carries the lazy tier's shape (65k, SE), the main path's
+    ktimes |= mv_times["65k"]
+    bounds |= {name: matvec_bound(LAZY_BIG_N, LAZY_BIG_N, D, "se", r)
+               for name, r in (("gram_matvec", None),
+                               ("gram_matmat", MATMAT_R))}
 
     print("== phase 3: single tier fit_predict, n = ntest = 16384, d = 8")
     mu64, var64, _ = reference_f64(x, y, xt)
@@ -558,12 +817,139 @@ def main(argv=None) -> int:
     print("  fit_predict warm median of 3: "
           + ", ".join(f"{k} {v!r} s" for k, v in walls.items()))
     for name, (k_ms, p_ms) in ktimes.items():
+        shape = "the 65k lazy shape" if "matvec" in name or "matmat" in name \
+            else "the bench shape"
         print(f"  {name}: kernel {k_ms!r} ms, plain {p_ms!r} ms, bound "
-              f"{bounds[name][0]!r} ms ({bounds[name][1]}) at the bench shape")
+              f"{bounds[name][0]!r} ms ({bounds[name][1]}) at {shape}")
     print(f"  qform_df: cuBLAS f64 DGEMM of the same (c, n)·(n, t) product "
           f"(a library product, not the same function) {qtimes[2]!r} ms")
-    print(f"  peak device memory of the whole run "
+    print(f"  peak device memory so far (float64 references included) "
           f"{torch.cuda.max_memory_allocated() / 2**30!r} GiB")
+    del gp1, gp2, gp3, refined_gp, x, y, xt
+    torch.cuda.empty_cache()
+
+    print(f"== phase 8: IterativeGP(lazy=True), SE(0.5) + Matérn-3/2(0.8), "
+          f"n = {LAZY_N}, d = {D}, s = {LAZY_S}, t = {LAZY_T}, against float64")
+    xl, yl, xtl = bench_data(dev, LAZY_N, LAZY_T)
+    t0 = time.perf_counter()
+    mu64, var64, _ = reference_f64(xl, yl, xtl, s=LAZY_S,
+                                   kern=lazy_kernel_matrix,
+                                   prior_var=float(len(LAZY_ATOMS)))
+    print(f"  dense float64 reference (Cholesky of the {LAZY_N}^2 Gram): "
+          f"{time.perf_counter() - t0!r} s")
+    torch.cuda.empty_cache()
+    kl = lazy_kernel(dev)
+    gpl = IterativeGP(kl, s=LAZY_S, lazy=True)
+    gpl._matvec_factory(xl)
+    basis = precond_basis_check(kl, xl, gpl._matmat)
+    print("  preconditioner basis, rank 512: " + "; ".join(
+        f"{k}: |UᵀU − I| {e!r}, least uᵀM⁻¹u {m!r}"
+        for k, (e, m) in basis.items())
+        + f" (the deflation cap's margin is 256·eps32 = {256 * EPS32!r})")
+    assert basis["float64 eigh"][1] > 0, basis
+    _, lazy_fit_s, lazy_fit_counts = counted(lambda: gpl.fit_gp(xl, yl))
+    (mu, sd), lazy_ms_s, lazy_ms_counts = counted(lambda: gpl.mean_std(xtl))
+    lazy = posterior_errors(mu, sd, mu64, var64)
+    print(f"  single: mean rel err {lazy[0]!r} (bar {LAZY_MEAN_RTOL}), var rel "
+          f"err max {lazy[1]!r} (bar {LAZY_VAR_RTOL}) median {lazy[2]!r}; "
+          f"fit_status {gpl.fit_status}; fit {lazy_fit_s!r} s (cold), "
+          f"mean_std {lazy_ms_s!r} s; launches fit {lazy_fit_counts}, "
+          f"mean_std {lazy_ms_counts}")
+    assert lazy[0] <= LAZY_MEAN_RTOL and lazy[1] <= LAZY_VAR_RTOL, lazy
+    # the fit's CG runs gram_matvec, its rank-512 preconditioner gram_matmat
+    assert lazy_fit_counts["gram_matvec"] > 0, lazy_fit_counts
+    assert lazy_fit_counts["gram_matmat"] > 0, lazy_fit_counts
+    assert lazy_ms_counts["gram_matmat"] > 0, lazy_ms_counts
+    del mu, sd, gpl
+    gpd = IterativeGP(kl, s=LAZY_S, lazy=True, precision="double",
+                      var_refine=0)
+    _, lazyd_fit_s, lazyd_fit_counts = counted(lambda: gpd.fit_gp(xl, yl))
+    mu, lazyd_mean_s, lazyd_mean_counts = counted(lambda: gpd.mean(xtl))
+    lazy_double = mean_error(mu, mu64)
+    print(f"  double (var_refine=0): mean rel err {lazy_double!r} (bar "
+          f"{LAZY_DOUBLE_MEAN_RTOL}, ROADMAP bar 1e-7); fit_status "
+          f"{gpd.fit_status}; fit {lazyd_fit_s!r} s, mean {lazyd_mean_s!r} s; "
+          f"launches fit {lazyd_fit_counts}, mean {lazyd_mean_counts}")
+    assert lazy_double <= LAZY_DOUBLE_MEAN_RTOL, lazy_double
+    assert all(lazyd_fit_counts[k] > 0 for k in
+               ("gram_matvec", "gram_matmat", "gram_df", "gemv_df")), \
+        lazyd_fit_counts
+    del mu, gpd, mu64, var64, xl, yl, xtl
+    torch.cuda.empty_cache()
+
+    print(f"== phase 9: IterativeGP(lazy=True), n = {LAZY_BIG_N}, d = {D} "
+          f"(benchmarks/exp_r4_65k_var.py)")
+    xb, yb, xtb = bench_data(dev, LAZY_BIG_N, LAZY_T, noise=0.05)
+    base_gib = torch.cuda.memory_allocated() / 2**30
+    gps = IterativeGP(kl, s=LAZY_S, lazy=True)
+    _, stock_s, stock_counts = counted(lambda: gps.fit_gp(xb, yb))
+    stock_status = dict(gps.fit_status)
+    stock_resid = exact_residual(xb, yb, gps.A)
+    print(f"  constructor defaults (precond_rank 'auto' = 512): fit "
+          f"{stock_s!r} s (cold); fit_status {stock_status}; exact relative "
+          f"residual (float64) {stock_resid!r}; launches {stock_counts}")
+    assert math.isfinite(stock_resid) and stock_counts["gram_matvec"] > 0
+    # what the segmentation (a TPU workaround kept for parity) costs: the
+    # same defaults with the single-program solver
+    segment_above, iterative.SEGMENT_ABOVE = iterative.SEGMENT_ABOVE, LAZY_BIG_N
+    try:
+        _, unseg_s, _ = counted(lambda: gps.fit_gp(xb, yb))
+    finally:
+        iterative.SEGMENT_ABOVE = segment_above
+    unseg_status = dict(gps.fit_status)
+    unseg_resid = exact_residual(xb, yb, gps.A)
+    print(f"  the same defaults, CG not segmented: fit {unseg_s!r} s; "
+          f"fit_status {unseg_status}; exact relative residual (float64) "
+          f"{unseg_resid!r}")
+    del gps
+    gpb = IterativeGP(kl, s=LAZY_S, lazy=True, precond_rank=LAZY_BIG_RANK)
+    torch.cuda.reset_peak_memory_stats()
+    _, big_cold_s, big_fit_counts = counted(lambda: gpb.fit_gp(xb, yb))
+    status = dict(gpb.fit_status)
+    _, big_warm_s, _ = counted(lambda: gpb.fit_gp(xb, yb))
+    fit_peak = torch.cuda.max_memory_allocated() / 2**30
+    resid = exact_residual(xb, yb, gpb.A)
+    print(f"  precond_rank {LAZY_BIG_RANK}: fit cold {big_cold_s!r} s, warm "
+          f"{big_warm_s!r} s; fit_status {status}; exact relative residual "
+          f"(float64) {resid!r} (bar {LAZY_RESIDUAL_MAX}); launches "
+          f"{big_fit_counts}; peak device memory of the fits {fit_peak!r} "
+          f"GiB")
+    assert resid <= LAZY_RESIDUAL_MAX, resid
+    assert big_fit_counts["gram_matvec"] > 0, big_fit_counts
+    assert big_fit_counts["gram_matmat"] > 0, big_fit_counts
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    (mu, sd), big_ms_s, big_ms_counts = counted(
+        lambda: gpb.mean_std(xtb[:256]))
+    t_used = 256
+    if 4 * big_ms_s < LAZY_BIG_MEAN_STD_S:
+        why = (f"4x the t = 256 wall ({big_ms_s!r} s) is under "
+               f"{LAZY_BIG_MEAN_STD_S} s")
+        (mu, sd), big_ms_s, big_ms_counts = counted(lambda: gpb.mean_std(xtb))
+        t_used = LAZY_T
+    else:
+        why = (f"4x the t = 256 wall ({big_ms_s!r} s) is over "
+               f"{LAZY_BIG_MEAN_STD_S} s")
+    kss_max = math.sqrt(len(LAZY_ATOMS))
+    assert mu.shape == sd.shape == (t_used, 1), (mu.shape, sd.shape)
+    assert bool(torch.isfinite(mu).all() and torch.isfinite(sd).all())
+    sd_min, sd_max = float(sd.min()), float(sd.max())
+    assert 0.0 < sd_min and sd_max <= kss_max * (1 + 1e-6), (sd_min, sd_max)
+    big_peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"  mean_std on t = {t_used} ({why}): {big_ms_s!r} s, sd in "
+          f"[{sd_min!r}, {sd_max!r}] (0 < sd <= sqrt(k**) = {kss_max!r}), "
+          f"launches {big_ms_counts}; peak device memory of mean_std "
+          f"{big_peak!r} GiB ({base_gib!r} GiB held before the tier)")
+    assert big_ms_counts["gram_matmat"] > 0, big_ms_counts
+    del mu, sd
+    launches |= {"gram_matvec": ("lazy_65k", big_fit_counts["gram_matvec"]),
+                 "gram_matmat": ("lazy_65k", big_fit_counts["gram_matmat"]
+                                 + big_ms_counts["gram_matmat"])}
+    walls |= {"lazy_32k_fit": lazy_fit_s, "lazy_32k_mean_std": lazy_ms_s,
+              "lazy_32k_double_fit": lazyd_fit_s,
+              "lazy_65k_defaults_fit": stock_s,
+              "lazy_65k_fit_cold": big_cold_s, "lazy_65k_fit_warm": big_warm_s,
+              f"lazy_65k_mean_std_t{t_used}": big_ms_s}
 
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": REPLACES[name][0],
@@ -573,17 +959,29 @@ def main(argv=None) -> int:
          "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
          "library_ms": None}
         for name in REPLACES
-    ], "qform_df_dgemm_ms": qtimes[2], "fit_predict_s": walls,
+    ], "qform_df_dgemm_ms": qtimes[2], "gram_matmat_sgemm_16k_ms": sgemm_ms,
+        "walls_s": walls,
         "posterior": {"single": single, "double": double,
                       **{f"var_refine_{k}": v for k, v in refined.items()},
-                      "laplace": laplace}}
+                      "laplace": laplace, "lazy_32k": lazy,
+                      "lazy_32k_double_mean": lazy_double,
+                      "lazy_65k_residual": resid,
+                      "lazy_65k_defaults_residual": stock_resid,
+                      "lazy_65k_defaults_unsegmented_residual": unseg_resid},
+        "lazy_65k_fit_status": status,
+        "lazy_65k_defaults_fit_status": stock_status,
+        "lazy_65k_defaults_unsegmented_fit_status": unseg_status,
+        "lazy_32k_precond_basis": basis}
     if profile:
-        del gp1, gp2, gp3, refined_gp
-        print("== phase 8: one warm fit_predict per tier under torch.profiler")
+        print("== phase 10: under torch.profiler, one warm fit_predict per "
+              "dense tier and one warm 65k lazy fit")
+        x, y, xt = bench_data(dev)
         profile_tier(se, "single", x, y, xt)
         profile_tier(se, "double", x, y, xt, precision="double")
         profile_tier(se, "var_refine", x, y, xt, precision="double",
                      var_refine=1)
+        del x, y, xt
+        profile_run("lazy_65k fit", lambda: gpb.fit_gp(xb, yb))
     print(json.dumps(record))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

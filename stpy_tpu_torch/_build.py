@@ -1,11 +1,15 @@
 """Build and load the port's hand-written CUDA kernels.
 
-Every source under ``csrc/`` compiles with ONE ``nvcc`` call into one shared
-library with a plain C interface (no PyTorch headers, so the build takes
-seconds), which is loaded with ``ctypes``. The library goes into
+Every source under ``csrc/`` (the ``*.cuh`` headers there are included by
+the sources) compiles with its own ``nvcc -c``, all started together, and
+one more ``nvcc -shared`` links the objects into one shared library with a
+plain C interface (no PyTorch headers, so the build takes seconds), which is
+loaded with ``ctypes``. The library goes into
 ``<build root>/<hash of the sources and flags>/``, so an edited source
 builds anew and an unchanged one is reused; the build root is
 ``build/stpy_tpu_torch/`` at the repository root (see :func:`build_root`).
+The compiler's messages, ptxas's register and shared-memory report among
+them, are kept beside the library in ``nvcc.log``.
 
 Nothing is built or loaded when the package is imported: the first kernel
 launch calls :func:`library`. Every C entry point returns
@@ -40,10 +44,9 @@ def build_root(package_dir: Path = CSRC.parent) -> Path:
 
 
 BUILD_ROOT = build_root()
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-)
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas=-v")
 LIB_NAME = "libstpy_tpu_torch.so"
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -62,6 +65,10 @@ _SIGNATURES = {
     "stpy_qform_df_reduce": (_P, _I, _I, _P, _P, _P),
     # c -> rows of the partial-sum buffer of stpy_qform_df
     "stpy_qform_df_row_tiles": (_I,),
+    # x, y, v, out, n, m, d, kappa, shape, stream
+    "stpy_gram_matvec": (_P, _P, _P, _P, _I, _I, _I, ctypes.c_float, _I, _P),
+    # x, y, V, out, n, m, d, r, kappa, shape, stream
+    "stpy_gram_matmat": (_P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _I, _P),
 }
 
 _lock = threading.Lock()
@@ -72,18 +79,28 @@ def sources() -> list[Path]:
     return sorted(CSRC.glob("*.cu"))
 
 
+def headers() -> list[Path]:
+    return sorted(CSRC.glob("*.cuh"))
+
+
 def nvcc() -> str:
     return shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
 
 
-def build_command(output: Path) -> list[str]:
-    """The one nvcc invocation that compiles every kernel into `output`."""
-    return [nvcc(), *NVCC_FLAGS, "-o", str(output), *map(str, sources())]
+def compile_command(src: Path, obj: Path) -> list[str]:
+    """The nvcc invocation that compiles one source into `obj`."""
+    return [nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+
+
+def link_command(objects, output: Path) -> list[str]:
+    """The nvcc invocation that links the objects into the library."""
+    return [nvcc(), *ARCH_FLAGS, "-shared", "-o", str(output),
+            *map(str, objects)]
 
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sources() + headers():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
@@ -99,17 +116,36 @@ def build() -> Path:
     if lib.exists():
         return lib
     lib.parent.mkdir(parents=True, exist_ok=True)
-    # per-process temporary name + atomic rename: concurrent builders
+    # per-process temporary names + atomic rename: concurrent builders
     # never load a half-written library
-    tmp = lib.with_name(f".{LIB_NAME}.{os.getpid()}.tmp")
-    proc = subprocess.run(build_command(tmp), capture_output=True, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed with exit code {proc.returncode}:\n"
-            f"{' '.join(build_command(tmp))}\n{proc.stdout}{proc.stderr}"
-        )
-    os.replace(tmp, lib)
+    tag = os.getpid()
+    srcs = sources()
+    objs = [lib.with_name(f".{src.stem}.{tag}.o") for src in srcs]
+    tmp = lib.with_name(f".{LIB_NAME}.{tag}.tmp")
+    cmds = [compile_command(s, o) for s, o in zip(srcs, objs)]
+    log = []
+    try:
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for c in cmds]
+        codes = []
+        for cmd, proc in zip(cmds, procs):
+            out, _ = proc.communicate()
+            codes.append(proc.returncode)
+            log.append(f"$ {' '.join(cmd)}\n{out}")
+        if not any(codes):
+            proc = subprocess.run(link_command(objs, tmp), capture_output=True,
+                                  text=True)
+            codes.append(proc.returncode)
+            log.append(f"$ {' '.join(link_command(objs, tmp))}\n"
+                       f"{proc.stdout}{proc.stderr}")
+        if any(codes):
+            raise RuntimeError("nvcc failed:\n" + "\n".join(log))
+        (lib.parent / "nvcc.log").write_text("\n".join(log))
+        os.replace(tmp, lib)
+    finally:
+        for path in (*objs, tmp):
+            path.unlink(missing_ok=True)
     return lib
 
 

@@ -18,26 +18,14 @@
 // pins its product to HIGHEST.
 #include <cuda_runtime.h>
 
+#include "gram_shape.cuh"
+
 namespace {
 
 constexpr int TILE = 64;   // output rows and columns per block
 constexpr int KC = 32;     // features staged per pass
 constexpr int TPB = 16;    // threads per block along each axis
 constexpr int PER = TILE / TPB;
-
-// Shape codes shared with stpy_tpu_torch/ops/gram.py:SHAPE_CODES.
-template <int SHAPE>
-__device__ __forceinline__ float shape_fn(float sq) {
-  if (SHAPE == 0) return expf(-0.5f * sq);                  // squared exponential
-  const float r = sqrtf(sq + 1e-30f);                       // Matern, eps as the TPU kernel
-  if (SHAPE == 1) return expf(-r);                          // nu = 1/2
-  if (SHAPE == 2) {                                         // nu = 3/2
-    const float k = 1.7320508075688772f * r;
-    return (1.0f + k) * expf(-k);
-  }
-  const float k = 2.23606797749979f * r;                    // nu = 5/2
-  return (1.0f + k + k * k / 3.0f) * expf(-k);
-}
 
 template <int SHAPE>
 __global__ void __launch_bounds__(TPB * TPB)
@@ -83,7 +71,7 @@ gram_kernel(const float* __restrict__ x, const float* __restrict__ y,
     for (int j = 0; j < PER; ++j) {
       const int c = col0 + tx + TPB * j;
       if (c >= m) continue;
-      const float sq = fmaxf(nx[i] + ny[j] - 2.0f * acc[i][j], 0.0f);
+      const float sq = sq_from_chain(nx[i], ny[j], acc[i][j]);
       out[(size_t)r * m + c] = kappa * shape_fn<SHAPE>(sq);
     }
   }

@@ -13,7 +13,9 @@ import torch
 
 def kernel_wrappers() -> dict:
     """name -> wrapper, for every hand kernel of the port."""
-    from stpy_tpu_torch.ops import gemv_df, gram, gram_df, gram_l1, qform_df
+    from stpy_tpu_torch.ops import (
+        gemv_df, gram, gram_df, gram_l1, gram_matvec, qform_df,
+    )
 
     return {
         "gram": gram.gram_scaled,
@@ -21,6 +23,8 @@ def kernel_wrappers() -> dict:
         "gemv_df": gemv_df.gemv_df,
         "qform_df": qform_df.qform_refined_strip,
         "gram_l1": gram_l1.gram_l1,
+        "gram_matvec": gram_matvec.gram_matvec_scaled,
+        "gram_matmat": gram_matvec.gram_matmat_scaled,
     }
 
 

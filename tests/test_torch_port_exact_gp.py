@@ -29,6 +29,28 @@ MEAN_RTOL, STD_RTOL, STATE_RTOL = 1e-8, 1e-6, 1e-10
 S = 0.1
 
 
+@pytest.fixture(autouse=True, scope="module")
+def pinned_torch_state():
+    """Run this module's torch work on one intra-op thread, with float64 as
+    the default dtype whatever the files a test worker imported before
+    (two other test modules set it when imported); both restored afterwards.
+
+    One thread, because in a fresh process the first multi-threaded call of
+    torch's CPU `exp` can return part of its output at reduced accuracy
+    (tools/torch_cpu_first_exp.py, torch 2.13.0+cpu on an AVX512 CPU, six
+    processes at a time: float64 entries off by up to 3.2e-9 in 4 of 240
+    fresh processes, float32 by up to 1.06e-4 in 3 of 60; no second call
+    was off, and no single-threaded first call). When this module ran
+    first on a worker, that fault moved the port's posterior mean 1.3e-8
+    from the JAX package's, above MEAN_RTOL."""
+    dtype, threads = torch.get_default_dtype(), torch.get_num_threads()
+    torch.set_default_dtype(torch.float64)
+    torch.set_num_threads(1)
+    yield
+    torch.set_default_dtype(dtype)
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def data():
     rng = np.random.default_rng(7)
@@ -305,4 +327,5 @@ def test_cpu_tensors_leave_every_launch_counter_at_zero(data):
         TorchGP(kernel=torch_kernel(case, dtype=torch.float32), s=S,
                 **kw).fit_predict(x, y, xt)
     assert launch_counts() == before == {
-        "gram": 0, "gram_df": 0, "gemv_df": 0, "qform_df": 0, "gram_l1": 0}
+        "gram": 0, "gram_df": 0, "gemv_df": 0, "qform_df": 0, "gram_l1": 0,
+        "gram_matvec": 0, "gram_matmat": 0}

@@ -212,13 +212,22 @@ def test_port_never_imports_jax():
 
 
 def test_build_command_targets_sm90a_and_every_source():
-    cmd = _build.build_command(Path("out.so"))
-    i = cmd.index("-gencode")
-    assert cmd[i + 1] == "arch=compute_90a,code=sm_90a"
-    names = {Path(c).name for c in cmd if c.endswith(".cu")}
+    srcs = _build.sources()
+    names = {src.name for src in srcs}
     assert names == {"gram.cu", "gram_df.cu", "gemv_df.cu", "gram_l1.cu",
-                     "qform_df.cu"}
-    assert {"-shared", "-O3", "-std=c++17"} <= set(cmd)
+                     "qform_df.cu", "gram_matvec.cu", "gram_matmat.cu"}
+    objs = [Path(f"{src.stem}.o") for src in srcs]
+    for src, obj in zip(srcs, objs):
+        cmd = _build.compile_command(src, obj)
+        i = cmd.index("-gencode")
+        assert cmd[i + 1] == "arch=compute_90a,code=sm_90a"
+        assert {"-c", "-O3", "-std=c++17"} <= set(cmd)
+        assert cmd[-1] == str(src) and cmd[cmd.index("-o") + 1] == str(obj)
+    link = _build.link_command(objs, Path("out.so"))
+    assert "-shared" in link and "arch=compute_90a,code=sm_90a" in link
+    assert [c for c in link if c.endswith(".o")] == [str(o) for o in objs]
+    # a header edit builds anew: headers are part of the library's hash
+    assert {h.name for h in _build.headers()} == {"gram_shape.cuh"}
     assert _build.library_path().parent.parent == _build.BUILD_ROOT
 
 
