@@ -14,13 +14,16 @@ torch.linalg on the card, then drives the matrix-free large-n path
 kernels) on the SE(0.5) + Matérn-3/2(0.8) sum kernel: at n = 32768 against
 a dense float64 posterior (single and double precision), and at n = 65536
 (benchmarks/exp_r4_65k_var.py) on constructor defaults, then with a
-rank-2048 preconditioner held to its float64 residual. The launch
-counters, zeroed just before each tier's run and read just after, show
-that each tier went through its kernels; every tier and every kernel is
-timed. With --profile it also traces one warm fit_predict
-of the single, double and var_refine tiers and one warm 65k lazy fit with
-torch.profiler: device busy time and idle share, host time, peak memory,
-and the kernels that take the time. Every phase asserts; any failure exits
+rank-2048 preconditioner held to its float64 residual; last (phase 11) the
+fast blocked Cholesky (linalg.chol_dense(fast=True) on the chol_leaf and
+syrk_lower kernels) in benchmarks/exp_fastchol.py's three variants at
+n = 16384 against the same float64 posterior. The launch counters, zeroed
+just before each tier's run and read just after, show that each tier went
+through its kernels; every tier and every kernel is timed. With --profile
+it also traces one warm fit_predict of the single, double and var_refine
+tiers, one warm 65k lazy fit and one warm fast factor with torch.profiler
+(phase 10): device busy time and idle share, host time, peak memory, and
+the kernels that take the time. Every phase asserts; any failure exits
 non-zero.
 
 The last line of standard output is one JSON object
@@ -42,8 +45,9 @@ import time
 import numpy as np
 import torch
 
-from stpy_tpu_torch import GaussianProcess, KernelFunction, _build
+from stpy_tpu_torch import GaussianProcess, KernelFunction, _build, linalg
 from stpy_tpu_torch.ops import launch_counts, reset_launch_counts
+from stpy_tpu_torch.ops.chol_leaf import chol_leaf, chol_leaf_plain
 from stpy_tpu_torch.ops.gemv_df import gemv_df, gemv_df_plain
 from stpy_tpu_torch.ops.gram import gram_plain, gram_scaled
 from stpy_tpu_torch.ops.gram_df import gram_df_plain, gram_df_scaled
@@ -53,6 +57,9 @@ from stpy_tpu_torch.ops.gram_matvec import (
     gram_matvec_scaled,
 )
 from stpy_tpu_torch.ops.qform_df import qform_df_plain, qform_refined_strip
+from stpy_tpu_torch.ops.syrk import (
+    _leaf_chol_, syrk_update_lower_, syrk_update_lower_plain_,
+)
 from stpy_tpu_torch.parallel import IterativeGP
 from stpy_tpu_torch.parallel import iterative
 
@@ -139,6 +146,31 @@ LAZY_BIG_MEAN_STD_S = 60.0
 # the f32 floor in ~400 iterations, in less time than the defaults' 500.
 LAZY_BIG_RANK = 2048
 
+# The fast blocked Cholesky (phase 2d, phase 11): its block size, the
+# trailing update's shapes -- ragged, and the first (largest) of the fast
+# factor's seven at n = 16384 (benchmarks/exp_chol3.py's probe shape) --
+# and the leaf sizes, the largest and a ragged one.
+FAST_NB = 2048
+SYRK_RAGGED, SYRK_PROBE = (1000, 300), (N - FAST_NB, FAST_NB)
+LEAF_SIZES = (1024, 1000)
+# syrk_lower against its plain version (cuBLAS SGEMM) on the lower
+# triangle, error over (|W||W|ᵀ)ᵢⱼ: each side's f32 sum of k products errs
+# by at most k·2⁻²⁴ of it, the subtraction from T by one rounding more;
+# twice the sum of the two is the bar.
+def syrk_rtol(k):
+    return 4.0 * k * 2.0 ** -24
+
+
+# chol_leaf against a float64 factor of the same f32 block, over max|L64|:
+# an f32 factorization of the SE Gram's leading block (torch's f32 LAPACK
+# factor measures ~3e-6 on such blocks); against its plain version, which
+# meets the same bar, twice it.
+LEAF_F64_RTOL = 2e-5
+LEAF_PLAIN_RTOL = 2 * LEAF_F64_RTOL
+# the fast factor's backward error max|tril(LLᵀ − A)|/max|A| against the
+# default (cuSOLVER) factor's on the same A
+FAST_BACKWARD_RATIO = 4.0
+
 REPLACES = {
     "gram": ("stpy_tpu_torch/csrc/gram.cu", "stpy_tpu/ops/pallas_gram.py:63"),
     "gram_df": ("stpy_tpu_torch/csrc/gram_df.cu",
@@ -153,6 +185,10 @@ REPLACES = {
                     "stpy_tpu/ops/pallas_gram_matvec.py:85"),
     "gram_matmat": ("stpy_tpu_torch/csrc/gram_matmat.cu",
                     "stpy_tpu/ops/pallas_gram_matvec.py:161"),
+    "syrk_lower": ("stpy_tpu_torch/csrc/syrk_lower.cu",
+                   "stpy_tpu/ops/pallas_syrk.py:46"),
+    "chol_leaf": ("stpy_tpu_torch/csrc/chol_leaf.cu",
+                  "stpy_tpu/ops/pallas_chol.py:74"),
 }
 # H100 SXM data-sheet peaks, dense: HBM3 bytes/s, f32 outside the tensor
 # cores, FP64 outside them and FP64 on the tensor cores (flop/s)
@@ -167,6 +203,10 @@ LINALG_OPS = ("aten::linalg_cholesky_ex", "aten::cholesky_solve",
               "aten::linalg_eigh")
 # the device-to-host scalar reads of the CG loops (one per iteration)
 HOST_READ_OPS = ("aten::_local_scalar_dense",)
+# the fast factor's stages around its kernels: the leaf inverses, the panel
+# and split products, the copies into the factor
+FAST_OPS = ("aten::linalg_solve_triangular", "aten::mm", "aten::addmm",
+            "aten::copy_", "aten::tril_")
 
 
 def card_line() -> str:
@@ -254,6 +294,18 @@ def qform_bound(c, n, t):
     2cnt FP64 operations of the product, which the tensor cores could run."""
     return bound(4 * (2 * c * n + n * t + 3 * c * t) + 8 * t,
                  2 * c * n * t + 6 * c * t, F64_MMA_FLOPS)
+
+
+def syrk_bound(m, k):
+    """syrk_lower: the lower half of T read and written once, W read once;
+    m(m+1)/2 entries times 2k f32 operations."""
+    return bound(4 * m * (m + 1) + 4 * m * k, m * (m + 1) * k, F32_FLOPS)
+
+
+def leaf_bound(n):
+    """chol_leaf: the lower half of the leaf read once, the whole factor
+    (its zero upper triangle too) written once; n³/3 f32 operations."""
+    return bound(2 * n * (n + 1) + 4 * n * n, n ** 3 / 3, F32_FLOPS)
 
 
 def kernel_checks(dev):
@@ -491,6 +543,148 @@ def matvec_checks(dev):
     return err, times, sgemm_ms
 
 
+def se_system(x):
+    """A = K(x, x) + s²I of the SE tiers (γ = 0.5), by the gram kernel."""
+    xs = x / GAMMA
+    A = gram_scaled(xs, xs, 1.0, "se")
+    A.diagonal().add_(S * S)
+    return A
+
+
+def syrk_error(T, W):
+    """syrk_lower on a copy of T against its plain version: (max |Δ|,
+    max |Δ| / (|W||W|ᵀ)ᵢⱼ) over the lower triangle. Two launches must give
+    the same bits, and T's strict upper triangle must come out untouched."""
+    out = syrk_update_lower_(T.clone(), W)
+    assert torch.equal(out, syrk_update_lower_(T.clone(), W)), \
+        "two launches gave different bits"
+    assert torch.equal(out.triu(1), T.triu(1)), "the upper triangle changed"
+    diff = (out - syrk_update_lower_plain_(T.clone(), W)).abs_().tril_()
+    del out
+    rel = diff / (W.abs() @ W.abs().T)
+    return float(diff.max()), float(rel.max())
+
+
+def chol_checks(dev, x):
+    """Phase 2d: syrk_lower and chol_leaf against their plain versions. The
+    update on a ragged strided view (m = 1000, k = 300, random operands;
+    strict upper untouched, the buffer around the view untouched) and at
+    the fast factor's first step on the 16k SE system (m = 14336,
+    k = 2048: T = A22, W = A21·L11⁻ᵀ); the leaf on the SE system's leading
+    1024 and 1000 block against its plain version and a float64 factor,
+    and on −I (non-finite out); both bitwise repeatable. Returns name ->
+    max abs error, the timed pairs, bounds and library times: syrk at the
+    probe shape against torch.addmm (the full square), the leaf at 1024
+    against cholesky_ex and, printed beside, `_leaf_chol_` at 2048."""
+    rng = np.random.default_rng(4)
+    err, times, bounds, library = {}, {}, {}, {}
+    m, k = SYRK_RAGGED
+    buf = torch.as_tensor(rng.standard_normal((m + 24, m + k + 40)),
+                          dtype=torch.float32, device=dev)
+    before = buf.clone()
+    T, W = buf[24:, k + 40:], buf[24:, 8:k + 8]     # strided, disjoint views
+    e, rel = syrk_error(T, W)
+    want = syrk_update_lower_(T.clone(), W)     # on a contiguous copy
+    syrk_update_lower_(T, W)                    # in place on the view
+    assert torch.equal(T, want), "the strided update differs from the copy's"
+    outside = torch.ones_like(buf, dtype=torch.bool)
+    outside[24:, k + 40:] = False
+    assert torch.equal(buf[outside], before[outside]), "wrote outside its view"
+    print(f"  syrk_lower ragged m={m} k={k} (strided views): max abs err "
+          f"{e!r}, max err / (|W||W|ᵀ) {rel!r} (bar {syrk_rtol(k)!r}), "
+          "repeatable, upper triangle and the buffer around untouched")
+    assert rel <= syrk_rtol(k), ("syrk_lower", "ragged", rel)
+    err["syrk_lower"] = e
+    del buf, before, T, W, want, outside
+
+    A = se_system(x)
+    m, k = SYRK_PROBE
+    L11 = torch.linalg.cholesky(A[:k, :k])
+    eye = torch.eye(k, dtype=A.dtype, device=dev)
+    W = A[k:, :k] @ torch.linalg.solve_triangular(L11, eye, upper=False).T
+    T = A[k:, k:].contiguous()
+    e, rel = syrk_error(T, W)
+    print(f"  syrk_lower probe m={m} k={k} (the 16k fast factor's first "
+          f"update): max abs err {e!r}, max err / (|W||W|ᵀ) {rel!r} (bar "
+          f"{syrk_rtol(k)!r}), repeatable")
+    assert rel <= syrk_rtol(k), ("syrk_lower", "probe", rel)
+    err["syrk_lower"] = max(err["syrk_lower"], e)
+    scratch = T.clone()     # timed updates run in place, values drifting
+    times["syrk_lower"] = timed_pair(lambda: syrk_update_lower_(scratch, W),
+                                     lambda: syrk_update_lower_plain_(scratch, W))
+    library["syrk_lower"] = cuda_ms(lambda: scratch.addmm_(W, W.T, alpha=-1.0))
+    bounds["syrk_lower"] = syrk_bound(m, k)
+    del T, W, scratch, L11
+    torch.cuda.empty_cache()
+
+    err["chol_leaf"] = 0.0
+    for n in LEAF_SIZES:
+        B = A[:n, :n].contiguous()
+        L = chol_leaf(B)
+        assert torch.equal(L, chol_leaf(B)), "two launches gave different bits"
+        assert bool((L.triu(1) == 0).all()), "the upper triangle is not 0"
+        P = chol_leaf_plain(B)
+        L64 = torch.linalg.cholesky(B.double())
+        top = float(L64.abs().max())
+        e = float((L - P).abs().max())
+        e64 = float((L.double() - L64).abs().max()) / top
+        p64 = float((P.double() - L64).abs().max()) / top
+        print(f"  chol_leaf n={n} (the 16k SE system's leading block): max abs "
+              f"err {e!r} (plain f32), max err / max|L64| {e64!r} (float64, "
+              f"bar {LEAF_F64_RTOL}), plain against float64 {p64!r}, "
+              "repeatable, upper triangle 0")
+        assert e64 <= LEAF_F64_RTOL and p64 <= LEAF_F64_RTOL, ("chol_leaf", n, e64, p64)
+        assert e / top <= LEAF_PLAIN_RTOL, ("chol_leaf", n, e)
+        err["chol_leaf"] = max(err["chol_leaf"], e)
+    bad = chol_leaf(-torch.eye(LEAF_SIZES[0], device=dev))
+    assert not bool(torch.isfinite(bad).all()), "chol_leaf(-I) came out finite"
+    print("  chol_leaf(-I): non-finite, as the jitter ladder needs")
+    n = LEAF_SIZES[0]
+    B = A[:n, :n].contiguous()
+    times["chol_leaf"] = timed_pair(lambda: chol_leaf(B),
+                                    lambda: chol_leaf_plain(B))
+    library["chol_leaf"] = cuda_ms(lambda: torch.linalg.cholesky_ex(B))
+    bounds["chol_leaf"] = leaf_bound(n)
+    B2 = A[:2 * n, :2 * n].contiguous()
+    times["leaf_chol_2048"] = (cuda_ms(lambda: _leaf_chol_(B2.clone())),
+                               cuda_ms(lambda: torch.linalg.cholesky_ex(B2)))
+    del A, B, B2, L, P, L64, bad
+    torch.cuda.empty_cache()
+    return err, times, bounds, library
+
+
+def backward_error(L, A, jitter):
+    """max|tril(LLᵀ − (A + jitter·I))| / max|A|, in float64."""
+    L64 = L.double()
+    R = L64 @ L64.T
+    del L64
+    R -= A.double()
+    R.diagonal().sub_(jitter)
+    return float(R.tril_().abs_().max() / A.abs().max())
+
+
+def fast_variant(kernel, x, y, xt, fast, refine):
+    """benchmarks/exp_fastchol.py's pipeline on the port: A = K + s²I by
+    the gram kernel, `safe_cholesky(A, fast=fast)`, α by cho_solve, with
+    `refine` one α-refinement step on the residual y − A·α (torch.matmul,
+    f32), the cross Gram, mean, trisolve and variance. Returns (mu (t, 1),
+    var (t,), L, A, jitter)."""
+    pd = kernel.params_dict
+    A = kernel.eval_params(pd, x, x)
+    A.diagonal().add_(S * S)
+    res = linalg.safe_cholesky(A, fast=fast)
+    assert bool(res.ok), "the factorization failed"
+    alpha = linalg.cho_solve_blocked(res.L, y)
+    if refine:
+        alpha += linalg.cho_solve_blocked(res.L, y - A @ alpha)
+    Ks = kernel.eval_params(pd, xt, x)
+    mu = Ks @ alpha
+    V = linalg.tri_solve_blocked(res.L, Ks.T)
+    del Ks
+    var = kernel.diag(xt) - (V * V).sum(0)
+    return mu, var, res.L, A, float(res.jitter)
+
+
 def kernel_matrix(family, gamma, a, b):
     """k(a_i, b_j) in float64 by plain torch ops: SE, Matérn-3/2 (γ-scaled
     euclidean distances) or Laplace (L1 distance over γ²)."""
@@ -645,14 +839,15 @@ def exact_residual(x, y, alpha):
     return float(torch.linalg.vector_norm(r) / torch.linalg.vector_norm(y64))
 
 
-def profile_run(label, run, top=10):
+def profile_run(label, run, top=10, ops=LINALG_OPS):
     """Phase 10 (--profile): one warm call of `run` under torch.profiler.
     Prints the device busy time (union of all device activity), the device
     span, the idle share of that span, the host time until `run` returns
     (before the closing synchronize), the peak device memory of the call,
     the `top` kernels by device time, each hand kernel's time and launches,
-    the device time of each linalg stage (LINALG_OPS) and the count and host
-    time of the CG loops' device-to-host scalar reads (HOST_READ_OPS)."""
+    the device time of each stage in `ops` (by default the linalg ones,
+    LINALG_OPS) and the count and host time of the CG loops' device-to-host
+    scalar reads (HOST_READ_OPS)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -689,7 +884,7 @@ def profile_run(label, run, top=10):
                   f" ms over {sum(c for _, c in hits)} launches")
     # device time of every kernel launched inside each linalg op of the path
     for avg in prof.key_averages():
-        if avg.key in LINALG_OPS:
+        if avg.key in ops:
             print(f"    {avg.key}: {avg.device_time_total / 1e3!r} ms device "
                   f"over {avg.count} calls")
         if avg.key in HOST_READ_OPS:
@@ -706,12 +901,87 @@ def profile_tier(kernel, label, x, y, xt, **gp_kw):
     profile_run(label, lambda: gp.fit_predict(x, y, xt))
 
 
+def fast_chol_phase(dev, kernel, mu64, var64):
+    """Phase 11: benchmarks/exp_fastchol.py's three variants (`fast_variant`
+    with the default factor, the fast factor, and the fast factor plus one
+    α-refinement step) on bench.py's data, each held to the float64
+    posterior (mu64, var64) at the single tier's bars, its factor's
+    backward error printed (the fast one held to FAST_BACKWARD_RATIO times
+    the default's), its launches counted on its first run (16 chol_leaf and
+    7 syrk_lower for the fast factor at n = 16384, none for the default),
+    its warm wall the median of 3. Then the two factors alone on A by CUDA
+    events, and the device memory each adds at its peak. Returns (per
+    variant results, factor ms, peak GiB)."""
+    x, y, xt = bench_data(dev)
+    try:
+        linalg.chol_dense(torch.eye(8, dtype=torch.float64, device=dev),
+                          fast=True)
+        raise AssertionError("chol_dense(fast=True) took a float64 K")
+    except TypeError as exc:
+        print(f"  float64 K with fast=True raises: {exc}")
+    fast = {}
+    for label, fast_, refine in (("default", False, False),
+                                 ("fast", True, False),
+                                 ("fast+refine", True, True)):
+        (mu, var, L, A, jitter), _, counts = counted(
+            lambda: fast_variant(kernel, x, y, xt, fast_, refine))
+        vrel = ((var.double() - var64).abs() / var64).cpu()
+        errors = (mean_error(mu, mu64), float(vrel.max()),
+                  float(vrel.median()))
+        backward = backward_error(L, A, jitter)
+        del mu, var, L, A
+        torch.cuda.empty_cache()
+        walls_ = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fast_variant(kernel, x, y, xt, fast_, refine)
+            torch.cuda.synchronize()
+            walls_.append(time.perf_counter() - t0)
+        fast[label] = {"wall_s": float(np.median(walls_)), "mean": errors[0],
+                       "var_max": errors[1], "var_median": errors[2],
+                       "backward": backward, "launches": counts}
+        print(f"  {label}: warm median of 3 {fast[label]['wall_s']!r} s; mean "
+              f"rel err {errors[0]!r}, var rel err max {errors[1]!r} median "
+              f"{errors[2]!r}; backward error max|tril(LLᵀ − A)|/max|A| "
+              f"{backward!r}; launches {counts}")
+        assert errors[0] <= SINGLE_MEAN_RTOL and errors[1] <= VAR_MAX_RTOL, \
+            (label, errors)
+        kernels = (counts["chol_leaf"], counts["syrk_lower"])
+        if fast_:
+            # 8 blocks of 2048, each two 1024 leaves; 7 trailing updates
+            assert kernels == (2 * N // FAST_NB, N // FAST_NB - 1), counts
+        else:
+            assert kernels == (0, 0) and counts["gram"] > 0, counts
+    assert fast["fast"]["backward"] <= (FAST_BACKWARD_RATIO
+                                        * fast["default"]["backward"]), fast
+    A = se_system(x)
+    factor_ms = {"fast": cuda_ms(lambda: linalg.chol_dense(A, fast=True), 3),
+                 "cholesky_ex": cuda_ms(lambda: torch.linalg.cholesky_ex(A), 3)}
+    peaks = {}
+    for label, fn in (("fast", lambda: linalg.chol_dense(A, fast=True)),
+                      ("cholesky_ex", lambda: torch.linalg.cholesky_ex(A))):
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = fn()
+        torch.cuda.synchronize()
+        peaks[label] = (torch.cuda.max_memory_allocated() - held) / 2**30
+        del out
+    print(f"  the factor alone on A (CUDA events, mean of 3): fast "
+          f"{factor_ms['fast']!r} ms, cholesky_ex {factor_ms['cholesky_ex']!r}"
+          f" ms; device memory it adds at its peak beyond A "
+          f"({A.numel() * 4 / 2**30!r} GiB): fast {peaks['fast']!r} GiB, "
+          f"cholesky_ex {peaks['cholesky_ex']!r} GiB")
+    return fast, factor_ms, peaks
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
         "--profile", action="store_true",
-        help="also profile one warm fit_predict per dense tier and one "
-             "warm 65k lazy fit (phase 10)")
+        help="also profile one warm fit_predict per dense tier, one warm "
+             "65k lazy fit and one warm fast factor (phase 10)")
     profile = parser.parse_args(argv).profile
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -741,9 +1011,15 @@ def main(argv=None) -> int:
     bounds |= {name: matvec_bound(LAZY_BIG_N, LAZY_BIG_N, D, "se", r)
                for name, r in (("gram_matvec", None),
                                ("gram_matmat", MATMAT_R))}
+    errs_chol, chol_times, chol_bounds, library = chol_checks(dev, x)
+    errs |= errs_chol
+    leaf2048 = chol_times.pop("leaf_chol_2048")
+    ktimes |= chol_times
+    bounds |= chol_bounds
 
     print("== phase 3: single tier fit_predict, n = ntest = 16384, d = 8")
     mu64, var64, _ = reference_f64(x, y, xt)
+    se_ref = (mu64, var64)           # phase 11 holds the fast factor to it
     se = KernelFunction(kernel_name="squared_exponential", gamma=GAMMA, d=D,
                         device=dev)
     gp1, mu, sd, single_counts = run_tier(se, x, y, xt)
@@ -816,13 +1092,22 @@ def main(argv=None) -> int:
     walls["laplace"] = wall_median(gp3, x, y, xt)
     print("  fit_predict warm median of 3: "
           + ", ".join(f"{k} {v!r} s" for k, v in walls.items()))
+    shapes = {"gram_matvec": "the 65k lazy shape",
+              "gram_matmat": "the 65k lazy shape",
+              "syrk_lower": f"m = {SYRK_PROBE[0]}, k = {SYRK_PROBE[1]}",
+              "chol_leaf": f"n = {LEAF_SIZES[0]}"}
     for name, (k_ms, p_ms) in ktimes.items():
-        shape = "the 65k lazy shape" if "matvec" in name or "matmat" in name \
-            else "the bench shape"
         print(f"  {name}: kernel {k_ms!r} ms, plain {p_ms!r} ms, bound "
-              f"{bounds[name][0]!r} ms ({bounds[name][1]}) at {shape}")
+              f"{bounds[name][0]!r} ms ({bounds[name][1]}) at "
+              f"{shapes.get(name, 'the bench shape')}")
     print(f"  qform_df: cuBLAS f64 DGEMM of the same (c, n)·(n, t) product "
           f"(a library product, not the same function) {qtimes[2]!r} ms")
+    print(f"  syrk_lower: torch.addmm(T, W, W.T, alpha=-1) {library['syrk_lower']!r}"
+          " ms (not the same function: the full square, twice the work)")
+    print(f"  chol_leaf: torch.linalg.cholesky_ex at n = {LEAF_SIZES[0]} "
+          f"{library['chol_leaf']!r} ms; at n = {2 * LEAF_SIZES[0]}: "
+          f"_leaf_chol_ (two leaves, the split's inverse and products) "
+          f"{leaf2048[0]!r} ms, cholesky_ex {leaf2048[1]!r} ms")
     print(f"  peak device memory so far (float64 references included) "
           f"{torch.cuda.max_memory_allocated() / 2**30!r} GiB")
     del gp1, gp2, gp3, refined_gp, x, y, xt
@@ -951,15 +1236,44 @@ def main(argv=None) -> int:
               "lazy_65k_fit_cold": big_cold_s, "lazy_65k_fit_warm": big_warm_s,
               f"lazy_65k_mean_std_t{t_used}": big_ms_s}
 
+    if profile:
+        print("== phase 10: under torch.profiler, one warm fit_predict per "
+              "dense tier, one warm 65k lazy fit and one warm fast factor")
+        x, y, xt = bench_data(dev)
+        profile_tier(se, "single", x, y, xt)
+        profile_tier(se, "double", x, y, xt, precision="double")
+        profile_tier(se, "var_refine", x, y, xt, precision="double",
+                     var_refine=1)
+        profile_run("lazy_65k fit", lambda: gpb.fit_gp(xb, yb))
+        A = se_system(x)
+        linalg.chol_dense(A, fast=True)
+        profile_run("fast factor (chol_dense(fast=True), n = 16384)",
+                    lambda: linalg.chol_dense(A, fast=True), ops=FAST_OPS)
+        del x, y, xt, A
+    del gpb, xb, yb, xtb
+    torch.cuda.empty_cache()
+
+    print(f"== phase 11: the fast factor (chol_dense(fast=True)) in "
+          f"benchmarks/exp_fastchol.py's three variants, n = ntest = {N}, "
+          f"d = {D}, SE gamma = {GAMMA}, s = {S}, against float64")
+    fast, factor_ms, peaks = fast_chol_phase(dev, se, *se_ref)
+    launches |= {"syrk_lower": ("fast_chol",
+                                fast["fast"]["launches"]["syrk_lower"]),
+                 "chol_leaf": ("fast_chol",
+                               fast["fast"]["launches"]["chol_leaf"])}
+    walls |= {f"fast_chol_{k}": v["wall_s"] for k, v in fast.items()}
+
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": REPLACES[name][0],
          "replaces": REPLACES[name][1], "tier": launches[name][0],
          "launches": launches[name][1], "max_abs_err": errs[name],
          "ms": ktimes[name][0], "plain_ms": ktimes[name][1],
          "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
-         "library_ms": None}
+         "library_ms": library.get(name)}
         for name in REPLACES
     ], "qform_df_dgemm_ms": qtimes[2], "gram_matmat_sgemm_16k_ms": sgemm_ms,
+        "leaf_chol_2048_ms": leaf2048[0],
+        "cholesky_ex_2048_ms": leaf2048[1],
         "walls_s": walls,
         "posterior": {"single": single, "double": double,
                       **{f"var_refine_{k}": v for k, v in refined.items()},
@@ -971,17 +1285,9 @@ def main(argv=None) -> int:
         "lazy_65k_fit_status": status,
         "lazy_65k_defaults_fit_status": stock_status,
         "lazy_65k_defaults_unsegmented_fit_status": unseg_status,
-        "lazy_32k_precond_basis": basis}
-    if profile:
-        print("== phase 10: under torch.profiler, one warm fit_predict per "
-              "dense tier and one warm 65k lazy fit")
-        x, y, xt = bench_data(dev)
-        profile_tier(se, "single", x, y, xt)
-        profile_tier(se, "double", x, y, xt, precision="double")
-        profile_tier(se, "var_refine", x, y, xt, precision="double",
-                     var_refine=1)
-        del x, y, xt
-        profile_run("lazy_65k fit", lambda: gpb.fit_gp(xb, yb))
+        "lazy_32k_precond_basis": basis,
+        "fast_chol": {**fast, "factor_ms": factor_ms,
+                      "factor_peak_gib": peaks}}
     print(json.dumps(record))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

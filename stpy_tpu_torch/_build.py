@@ -69,6 +69,10 @@ _SIGNATURES = {
     "stpy_gram_matvec": (_P, _P, _P, _P, _I, _I, _I, ctypes.c_float, _I, _P),
     # x, y, V, out, n, m, d, r, kappa, shape, stream
     "stpy_gram_matmat": (_P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _I, _P),
+    # C, W, m, k, ldc, ldw, stream
+    "stpy_syrk_lower": (_P, _P, _I, _I, _I, _I, _P),
+    # A, n, lda, stream
+    "stpy_chol_leaf": (_P, _I, _I, _P),
 }
 
 _lock = threading.Lock()

@@ -3,8 +3,12 @@
 Port of the part of stpy_tpu/linalg.py on the exact-GP path, with the same
 names and semantics. The JAX bodies are XLA ops, not Pallas kernels, so the
 port calls cuSOLVER / cuBLAS through `torch.linalg.cholesky_ex` and
-`torch.linalg.solve_triangular`. Failure is reported as a returned flag,
-never raised.
+`torch.linalg.solve_triangular`. The exception is `chol_dense(K, fast=True)`
+(and `safe_cholesky(K, fast=True)` on it): for a float32 K on the card with
+n ≥ 4096 it runs the blocked factorization `ops.syrk.chol_blocked_syrk` on
+the hand kernels csrc/chol_leaf.cu and csrc/syrk_lower.cu, where the JAX
+package runs its Pallas kernels on the TPU. Failure is reported as a
+returned flag, never raised.
 
 The `precision`, `precision_bwd`, `nb` and `leaf_inv` arguments exist for
 signature parity and have no effect: they pick the TPU's bf16-pass count and
@@ -20,6 +24,11 @@ from typing import NamedTuple
 import torch
 
 from stpy_tpu_torch.config import default_jitter
+from stpy_tpu_torch.ops.syrk import chol_blocked_syrk
+
+# the JAX package takes the fast factorization from this n up
+# (stpy_tpu/linalg.py:61)
+FAST_MIN_N = 4096
 
 
 class CholResult(NamedTuple):
@@ -49,6 +58,28 @@ def chol_jittered(K, jitter: float | None = None):
     return _cholesky(A)
 
 
+def chol_dense(K, fast: bool = False):
+    """Single-device dense lower Cholesky, NaN-filled where it fails.
+
+    Default: cuSOLVER / LAPACK (`torch.linalg.cholesky_ex`). `fast=True`
+    takes the blocked factorization on the hand kernels
+    (`ops.syrk.chol_blocked_syrk`) exactly where the JAX package takes its
+    Pallas one: n ≥ 4096 and K on the accelerator (here `K.is_cuda`). It is
+    for MAP-style fits and preconditioners; the JAX package keeps its
+    default factor on the accuracy-gated posterior path. On the card the
+    fast factorization is float32 only, so `fast=True` with another dtype
+    on the card raises instead of turning quietly into cuSOLVER; on the CPU
+    `fast` changes nothing, as the JAX package's non-TPU branch."""
+    if fast and K.is_cuda:
+        if K.dtype != torch.float32:
+            raise TypeError(
+                "chol_dense(fast=True): the fast factorization on the card is "
+                f"float32 (its hand kernels compute in f32), got {K.dtype}")
+        if K.shape[0] >= FAST_MIN_N:
+            return chol_blocked_syrk(K)
+    return _cholesky(K)
+
+
 def safe_cholesky(K, jitter: float | None = None, max_tries: int = 6,
                   fast: bool = False) -> CholResult:
     """Cholesky of a PSD matrix with an escalating (10x) jitter ladder:
@@ -57,7 +88,10 @@ def safe_cholesky(K, jitter: float | None = None, max_tries: int = 6,
 
     The jitter goes onto K's diagonal in place and K's original diagonal
     is restored before returning, so no n² copy of K is made (1 GiB at
-    n = 16k in f32). `fast` has no effect (see the module docstring)."""
+    n = 16k in f32). With `fast=True` each attempt is `chol_dense(K,
+    fast=True)` and succeeds when its factor is all finite, as in the JAX
+    package; with `fast=False` each attempt is one `cholesky_ex`, judged by
+    its info code."""
     base = default_jitter(K.dtype) if jitter is None else jitter
     scale = _mean_diag_scale(K)
     diag = torch.diagonal(K)
@@ -68,8 +102,14 @@ def safe_cholesky(K, jitter: float | None = None, max_tries: int = 6,
             if t:
                 j = j * 10.0
             diag.copy_(orig + j * scale)
-            L, info = torch.linalg.cholesky_ex(K)
-            if int(info) == 0:
+            L = None   # the failed attempt's factor goes before the next
+            if fast:
+                L = chol_dense(K, fast=True)
+                ok = bool(torch.isfinite(L).all())
+            else:
+                L, info = torch.linalg.cholesky_ex(K)
+                ok = int(info) == 0
+            if ok:
                 return CholResult(L=L, jitter=j * scale,
                                   ok=torch.tensor(True, device=K.device))
         return CholResult(L=torch.full_like(L, float("nan")),

@@ -14,7 +14,8 @@ import torch
 def kernel_wrappers() -> dict:
     """name -> wrapper, for every hand kernel of the port."""
     from stpy_tpu_torch.ops import (
-        gemv_df, gram, gram_df, gram_l1, gram_matvec, qform_df,
+        chol_leaf, gemv_df, gram, gram_df, gram_l1, gram_matvec, qform_df,
+        syrk,
     )
 
     return {
@@ -25,6 +26,8 @@ def kernel_wrappers() -> dict:
         "gram_l1": gram_l1.gram_l1,
         "gram_matvec": gram_matvec.gram_matvec_scaled,
         "gram_matmat": gram_matvec.gram_matmat_scaled,
+        "syrk_lower": syrk.syrk_update_lower_,
+        "chol_leaf": chol_leaf.chol_leaf_,
     }
 
 

@@ -215,7 +215,8 @@ def test_build_command_targets_sm90a_and_every_source():
     srcs = _build.sources()
     names = {src.name for src in srcs}
     assert names == {"gram.cu", "gram_df.cu", "gemv_df.cu", "gram_l1.cu",
-                     "qform_df.cu", "gram_matvec.cu", "gram_matmat.cu"}
+                     "qform_df.cu", "gram_matvec.cu", "gram_matmat.cu",
+                     "syrk_lower.cu", "chol_leaf.cu"}
     objs = [Path(f"{src.stem}.o") for src in srcs]
     for src, obj in zip(srcs, objs):
         cmd = _build.compile_command(src, obj)

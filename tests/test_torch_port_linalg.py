@@ -18,6 +18,8 @@ from stpy_tpu import linalg as jl
 from stpy_tpu_torch import linalg as tl
 from stpy_tpu_torch.config import default_jitter
 
+from test_torch_port_gram_matvec import _FakeCuda
+
 RTOL = 1e-10
 
 
@@ -118,3 +120,69 @@ def test_jitter_defaults_match_jax():
 
     assert default_jitter(torch.float32) == jax_default_jitter(jnp.float32)
     assert default_jitter(torch.float64) == jax_default_jitter(jnp.float64)
+
+
+@pytest.mark.parametrize("fast", [False, True])
+def test_chol_dense_matches_jax_on_the_cpu(fast):
+    """On the CPU both packages' `fast` branch is the LAPACK factor (the
+    fast factorization is for the accelerator), so they agree at RTOL."""
+    K = spd(96, seed=6)
+    got = tl.chol_dense(torch.as_tensor(K), fast=fast)
+    assert rel_err(got.numpy(), jl.chol_dense(jnp.asarray(K), fast=fast)) <= RTOL
+    assert bool(torch.isnan(tl.chol_dense(-torch.eye(4, dtype=torch.float64),
+                                          fast=fast)).all())
+
+
+def test_safe_cholesky_fast_matches_jax_on_the_cpu():
+    K = spd(96, seed=0)
+    res = tl.safe_cholesky(torch.as_tensor(K), fast=True)
+    want = jl.safe_cholesky(jnp.asarray(K), fast=True)
+    assert bool(res.ok) and bool(want.ok)
+    assert rel_err(res.L.numpy(), want.L) <= RTOL
+    assert float(res.jitter) == pytest.approx(float(want.jitter), rel=1e-12)
+
+
+def test_safe_cholesky_fast_ladder_escalates_like_jax():
+    """The matrix of test_safe_cholesky_ladder_escalates_like_jax, through
+    the isfinite test of the fast ladder: the same rungs fail, the same
+    jitter succeeds, and K comes back unchanged."""
+    rng = np.random.default_rng(1)
+    Q, _ = np.linalg.qr(rng.standard_normal((40, 40)))
+    lam = np.linspace(1.0, 2.0, 40)
+    lam[0] = -1e-9
+    K = (Q * lam) @ Q.T
+    Kt = torch.as_tensor(K.copy())
+    res = tl.safe_cholesky(Kt, fast=True)
+    want = jl.safe_cholesky(jnp.asarray(K), fast=True)
+    assert bool(res.ok) and bool(want.ok)
+    assert float(res.jitter) == pytest.approx(float(want.jitter), rel=1e-12)
+    assert float(res.jitter) > default_jitter(torch.float64) * np.mean(np.diag(K))
+    assert rel_err(res.L.numpy(), want.L) <= RTOL
+    assert np.array_equal(Kt.numpy(), K)
+    fail = tl.safe_cholesky(-torch.eye(8, dtype=torch.float64), max_tries=2,
+                            fast=True)
+    assert not bool(fail.ok) and bool(torch.isnan(fail.L).all())
+
+
+def test_chol_dense_takes_the_fast_path_where_the_jax_package_does(monkeypatch):
+    """`fast`, n ≥ 4096 and a tensor on the accelerator (stpy_tpu/linalg.py:61);
+    everywhere else the default factor."""
+    calls = []
+    monkeypatch.setattr(tl, "chol_blocked_syrk",
+                        lambda K: calls.append(("fast", K.shape[0])))
+    monkeypatch.setattr(tl, "_cholesky",
+                        lambda K: calls.append(("default", K.shape[0])))
+    for n, cuda, fast in ((4096, True, True), (4095, True, True),
+                          (4096, True, False), (4096, False, True)):
+        K = torch.empty((n, n), dtype=torch.float32)
+        tl.chol_dense(K.as_subclass(_FakeCuda) if cuda else K, fast=fast)
+    assert calls == [("fast", 4096), ("default", 4095), ("default", 4096),
+                     ("default", 4096)]
+
+
+def test_fast_factor_on_the_card_is_float32_only():
+    K = torch.eye(8, dtype=torch.float64).as_subclass(_FakeCuda)
+    with pytest.raises(TypeError, match="float32"):
+        tl.chol_dense(K, fast=True)
+    with pytest.raises(TypeError, match="float32"):
+        tl.safe_cholesky(K, fast=True)
