@@ -14,10 +14,14 @@ torch.linalg on the card, then drives the matrix-free large-n path
 kernels) on the SE(0.5) + Matérn-3/2(0.8) sum kernel: at n = 32768 against
 a dense float64 posterior (single and double precision), and at n = 65536
 (benchmarks/exp_r4_65k_var.py) on constructor defaults, then with a
-rank-2048 preconditioner held to its float64 residual; last (phase 11) the
+rank-2048 preconditioner held to its float64 residual; then (phase 11) the
 fast blocked Cholesky (linalg.chol_dense(fast=True) on the chol_leaf and
 syrk_lower kernels) in benchmarks/exp_fastchol.py's three variants at
-n = 16384 against the same float64 posterior. The launch counters, zeroed
+n = 16384 against the same float64 posterior; last (phase 12) the df-entry
+stage probe (stpy_tpu_torch/probes/exp_r3_df_entry.py, the port of
+benchmarks/exp_r3_batch_{p,t,u,x}.py) at full size, every stage of the
+df Matérn entry held to 1e-13 of host float64 and 40-digit decimal, on the
+gram_df_stages kernel and gram_df.cu's stage launch. The launch counters, zeroed
 just before each tier's run and read just after, show that each tier went
 through its kernels; every tier and every kernel is timed. With --profile
 it also traces one warm fit_predict of the single, double and var_refine
@@ -38,19 +42,30 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import re
+import shutil
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 
 from stpy_tpu_torch import GaussianProcess, KernelFunction, _build, linalg
-from stpy_tpu_torch.ops import launch_counts, reset_launch_counts
+from stpy_tpu_torch.ops import (
+    gram_df_stages, launch_counts, reset_launch_counts,
+)
 from stpy_tpu_torch.ops.chol_leaf import chol_leaf, chol_leaf_plain
 from stpy_tpu_torch.ops.gemv_df import gemv_df, gemv_df_plain
 from stpy_tpu_torch.ops.gram import gram_plain, gram_scaled
-from stpy_tpu_torch.ops.gram_df import gram_df_plain, gram_df_scaled
+from stpy_tpu_torch.ops.gram_df import (
+    gram_df_plain, gram_df_scaled, scale_coords,
+)
+from stpy_tpu_torch.ops.gram_df_stages import (
+    ENTRY_STAGES, GRAM_STAGES, df_entry_stage, df_entry_stage_plain,
+    gram_df_stage, gram_df_stage_plain,
+)
 from stpy_tpu_torch.ops.gram_l1 import gram_l1, gram_l1_plain
 from stpy_tpu_torch.ops.gram_matvec import (
     gram_matmat_plain, gram_matmat_scaled, gram_matvec_plain,
@@ -62,6 +77,7 @@ from stpy_tpu_torch.ops.syrk import (
 )
 from stpy_tpu_torch.parallel import IterativeGP
 from stpy_tpu_torch.parallel import iterative
+from stpy_tpu_torch.probes import exp_r3_df_entry
 
 N = NTEST = 16384
 D = 8
@@ -171,6 +187,16 @@ LEAF_PLAIN_RTOL = 2 * LEAF_F64_RTOL
 # default (cuSOLVER) factor's on the same A
 FAST_BACKWARD_RATIO = 4.0
 
+# Phase 12, the df-entry stage probe (stpy_tpu_torch/probes/exp_r3_df_entry):
+# gram_df_stages and gram_df[stage] against their plain versions, error of
+# the pair value hi + lo over its magnitude. Both evaluate the same FP64
+# formulas; they differ by the f32 rounding of lo (at most 2⁻⁴⁸ ≈ 3.6e-15
+# relative) and the order of a few roundings, far under the df Gram's bar.
+STAGE_RTOL = exp_r3_df_entry.DF_RTOL
+STAGE_FAMILIES = (("se", 1.5), ("matern", 0.5), ("matern", 1.5),
+                  ("matern", 2.5))
+STAGE_KAPPA = 1.3
+
 REPLACES = {
     "gram": ("stpy_tpu_torch/csrc/gram.cu", "stpy_tpu/ops/pallas_gram.py:63"),
     "gram_df": ("stpy_tpu_torch/csrc/gram_df.cu",
@@ -189,6 +215,13 @@ REPLACES = {
                    "stpy_tpu/ops/pallas_syrk.py:46"),
     "chol_leaf": ("stpy_tpu_torch/csrc/chol_leaf.cu",
                   "stpy_tpu/ops/pallas_chol.py:74"),
+    "gram_df_stages": ("stpy_tpu_torch/csrc/gram_df_stages.cu",
+                       "benchmarks/exp_r3_batch_p.py:40"),
+    "gram_df[stage]": ("stpy_tpu_torch/csrc/gram_df.cu",
+                       "benchmarks/exp_r3_batch_t.py:79, "
+                       "benchmarks/exp_r3_batch_t.py:127, "
+                       "benchmarks/exp_r3_batch_u.py:109, "
+                       "benchmarks/exp_r3_batch_x.py:48"),
 }
 # H100 SXM data-sheet peaks, dense: HBM3 bytes/s, f32 outside the tensor
 # cores, FP64 outside them and FP64 on the tensor cores (flop/s)
@@ -196,6 +229,9 @@ HBM_BPS, F32_FLOPS, F64_FLOPS, F64_MMA_FLOPS = 3.35e12, 67e12, 34e12, 67e12
 # special-function unit (exp, sqrt): 16 results per clock per SM, 132 SMs at
 # the 1.98 GHz boost clock of the SXM part
 SFU_OPS = 16 * 132 * 1.98e9
+# FP64 instructions per second outside the tensor cores: the data sheet's
+# flop rate counts a DFMA as two
+F64_INSTR = F64_FLOPS / 2
 # the cuSOLVER / cuBLAS stages of the profiled paths (phase 10 split):
 # stpy_tpu_torch/linalg.py, and the preconditioner's QR and eigh
 LINALG_OPS = ("aten::linalg_cholesky_ex", "aten::cholesky_solve",
@@ -306,6 +342,55 @@ def leaf_bound(n):
     """chol_leaf: the lower half of the leaf read once, the whole factor
     (its zero upper triangle too) written once; n³/3 f32 operations."""
     return bound(2 * n * (n + 1) + 4 * n * n, n ** 3 / 3, F32_FLOPS)
+
+
+def sass_functions() -> dict:
+    """kernel symbol -> its instructions, from `cuobjdump -sass` of the built
+    library (cuobjdump beside nvcc, else on PATH)."""
+    tool = Path(_build.nvcc()).with_name("cuobjdump")
+    tool = str(tool) if tool.exists() else shutil.which("cuobjdump")
+    assert tool, "cuobjdump not found beside nvcc or on PATH"
+    out = subprocess.run([tool, "-sass", str(_build.library_path())],
+                         capture_output=True, text=True, check=True,
+                         timeout=300).stdout
+    funcs, name = {}, None
+    for line in out.splitlines():
+        head = re.search(r"Function : (\S+)", line)
+        if head:
+            name = head.group(1)
+            funcs[name] = []
+            continue
+        ins = re.search(r"/\*[0-9a-f]{4,}\*/\s+(.*?)\s*;", line)
+        if name and ins:
+            funcs[name].append(ins.group(1))
+    return funcs
+
+
+def stage_ops(funcs, shape, stage):
+    """(FP64 instructions, 64-bit MUFU instructions) per entry of
+    gram_df_stages_kernel<shape, stage> as compiled: its loop body, one entry
+    a pass, is every instruction up to the kernel's unpredicated EXIT. The
+    out-of-line slow paths that sqrt and the division call (CALL.REL, past
+    that EXIT) are not counted; exp's inline overflow branch is."""
+    key = f"gram_df_stages_kernelILi{shape}ELi{stage}E"
+    (body,) = [v for k, v in funcs.items() if key in k]
+    fp64 = mufu = 0
+    for ins in body:
+        op = ins.split()[1] if ins.startswith("@") else ins.split()[0]
+        if op == "EXIT" and not ins.startswith("@"):
+            break
+        base = op.split(".")[0]
+        fp64 += base in ("DADD", "DMUL", "DFMA", "DSETP", "DMNMX")
+        mufu += base == "MUFU" and op.endswith("64H")
+    return fp64, mufu
+
+
+def stage_bound(entries, nbytes, fp64, mufu):
+    """The bytes over HBM_BPS against the FP64 instructions over F64_INSTR
+    and the MUFU ones over SFU_OPS, `fp64` and `mufu` per entry."""
+    t_bytes = nbytes / HBM_BPS * 1e3
+    t_ops = entries * max(fp64 / F64_INSTR, mufu / SFU_OPS) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def kernel_checks(dev):
@@ -976,6 +1061,105 @@ def fast_chol_phase(dev, kernel, mu64, var64):
     return fast, factor_ms, peaks
 
 
+def pair_error(got, want):
+    """(max |Δ|, max |Δ| / |want|) of two (hi, lo) pairs' values."""
+    g = got[0].double() + got[1].double()
+    w = want[0].double() + want[1].double()
+    diff = (g - w).abs()
+    return float(diff.max()), float((diff / w.abs().clamp_min(1e-300)).max())
+
+
+def df_stage_phase(dev):
+    """Phase 12: the df-entry stage probe (exp_r3_df_entry.run at full size,
+    every stage held to DF_RTOL against host float64 and 40-digit decimal),
+    its launches counted; then gram_df_stages on P's grid (ν = ½, 3/2, 5/2)
+    and gram_df[stage] on X's slice (SE and the three Matérns, κ = 1.3)
+    against their plain versions at STAGE_RTOL, gram_df[stage]'s "entry"
+    bitwise against the production gram_df; each timed at the probe's
+    shape (ν = 5/2, stage "entry") beside its bound, whose FP64 operations
+    are counted from the compiled SASS (`stage_ops`). Returns (probe
+    results, launch counts, errors, times, bounds)."""
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    results = exp_r3_df_entry.run(dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    failed = [k for k, r in results.items() if not r["ok"]]
+    print(f"  probe: {len(results) - len(failed)} of {len(results)} stages "
+          f"within {exp_r3_df_entry.DF_RTOL}, {wall!r} s, launches {counts}")
+    assert not failed, failed
+    assert all(counts[k] > 0 for k in
+               ("gram_df_stages", "gram_df[stage]", "gram_df")), counts
+
+    err = {"gram_df_stages": 0.0, "gram_df[stage]": 0.0}
+    sqh, sql, _ = exp_r3_df_entry.p_grid()
+    sqh, sql = (torch.as_tensor(a, device=dev) for a in (sqh, sql))
+    worst = 0.0
+    for nu in (0.5, 1.5, 2.5):
+        for stage in ENTRY_STAGES:
+            e, rel = pair_error(df_entry_stage(sqh, sql, nu=nu, stage=stage),
+                                df_entry_stage_plain(sqh, sql, nu=nu,
+                                                     stage=stage))
+            assert rel <= STAGE_RTOL, ("gram_df_stages", nu, stage, rel)
+            err["gram_df_stages"] = max(err["gram_df_stages"], e)
+            worst = max(worst, rel)
+    print(f"  gram_df_stages {tuple(sqh.shape)}, nu 0.5/1.5/2.5, stages "
+          f"{ENTRY_STAGES}: max abs err {err['gram_df_stages']!r}, max rel "
+          f"err {worst!r} (bar {STAGE_RTOL})")
+    rows, cols = exp_r3_df_entry.x_slice()
+    xs, ys = (scale_coords(torch.as_tensor(a, device=dev), exp_r3_df_entry.G)
+              for a in (rows, cols))
+    worst = 0.0
+    for fam, nu in STAGE_FAMILIES:
+        for stage in GRAM_STAGES:
+            kw = {"family": fam, "nu": nu, "stage": stage}
+            e, rel = pair_error(gram_df_stage(xs, ys, STAGE_KAPPA, **kw),
+                                gram_df_stage_plain(xs, ys, STAGE_KAPPA, **kw))
+            assert rel <= STAGE_RTOL, ("gram_df[stage]", fam, nu, stage, rel)
+            err["gram_df[stage]"] = max(err["gram_df[stage]"], e)
+            worst = max(worst, rel)
+        ph, pl = gram_df_scaled(xs, ys, STAGE_KAPPA, fam, nu)
+        sh, sl = gram_df_stage(xs, ys, STAGE_KAPPA, family=fam, nu=nu,
+                               stage="entry")
+        assert torch.equal(ph, sh) and torch.equal(pl, sl), \
+            ("stage entry differs from the production gram_df", fam, nu)
+    n, m, d = xs.shape[0], ys.shape[0], xs.shape[1]
+    print(f"  gram_df[stage] {n}x{m} d={d}, SE and Matérn 0.5/1.5/2.5, "
+          f"stages {GRAM_STAGES}: max abs err {err['gram_df[stage]']!r}, max "
+          f"rel err {worst!r} (bar {STAGE_RTOL}); stage entry bitwise equal "
+          "to the production gram_df")
+
+    times = {
+        "gram_df_stages": timed_pair(
+            lambda: df_entry_stage(sqh, sql, nu=2.5, stage="entry"),
+            lambda: df_entry_stage_plain(sqh, sql, nu=2.5, stage="entry"),
+            reps=20),
+        "gram_df[stage]": timed_pair(
+            lambda: gram_df_stage(xs, ys, 1.0, family="matern", nu=2.5,
+                                  stage="entry"),
+            lambda: gram_df_stage_plain(xs, ys, 1.0, family="matern", nu=2.5,
+                                        stage="entry"), reps=20),
+    }
+    funcs = sass_functions()
+    for stage in ENTRY_STAGES:
+        code = gram_df_stages.STAGE_CODES[stage]
+        print(f"  SASS of gram_df_stages_kernel<3, {stage}> (Matérn-5/2): "
+              "(FP64, 64-bit MUFU) instructions per entry "
+              f"{stage_ops(funcs, 3, code)}")
+    fp64, mufu = stage_ops(funcs, 3, gram_df_stages.STAGE_CODES["entry"])
+    entries = sqh.numel()
+    # gram_df[stage]: per pair the d-loop's DADD and DFMA per feature, the
+    # entry as in the stage kernel less its input's DADD, and κ's DMUL
+    bounds = {"gram_df_stages": stage_bound(entries, 16 * entries, fp64, mufu),
+              "gram_df[stage]": stage_bound(n * m, 8 * (n + m) * d + 8 * n * m,
+                                            2 * d + fp64, mufu)}
+    for name, (k_ms, p_ms) in times.items():
+        print(f"  {name}: kernel {k_ms!r} ms, plain {p_ms!r} ms, bound "
+              f"{bounds[name][0]!r} ms ({bounds[name][1]})")
+    return results, counts, err, times, bounds
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
@@ -1263,6 +1447,18 @@ def main(argv=None) -> int:
                                fast["fast"]["launches"]["chol_leaf"])}
     walls |= {f"fast_chol_{k}": v["wall_s"] for k, v in fast.items()}
 
+    print(f"== phase 12: the df-entry stage probe "
+          f"(stpy_tpu_torch/probes/exp_r3_df_entry.py: benchmarks/"
+          f"exp_r3_batch_p/t/u/x.py), Matérn-5/2, gamma = "
+          f"{exp_r3_df_entry.G}, d = {D}, against float64 and decimal")
+    probe, probe_counts, errs_stage, stage_times, stage_bounds = \
+        df_stage_phase(dev)
+    errs |= errs_stage
+    ktimes |= stage_times
+    bounds |= stage_bounds
+    launches |= {name: ("df_entry_probe", probe_counts[name])
+                 for name in stage_times}
+
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": REPLACES[name][0],
          "replaces": REPLACES[name][1], "tier": launches[name][0],
@@ -1287,7 +1483,8 @@ def main(argv=None) -> int:
         "lazy_65k_defaults_unsegmented_fit_status": unseg_status,
         "lazy_32k_precond_basis": basis,
         "fast_chol": {**fast, "factor_ms": factor_ms,
-                      "factor_peak_gib": peaks}}
+                      "factor_peak_gib": peaks},
+        "df_entry_probe": probe}
     print(json.dumps(record))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

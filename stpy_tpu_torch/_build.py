@@ -55,6 +55,11 @@ _SIGNATURES = {
     "stpy_gram_f32": (_P, _P, _P, _I, _I, _I, ctypes.c_float, _I, _P),
     # x, y, hi, lo, n, m, d, kappa, shape, stream
     "stpy_gram_df": (_P, _P, _P, _P, _I, _I, _I, ctypes.c_double, _I, _P),
+    # x, y, hi, lo, n, m, d, kappa, shape, stage, stream
+    "stpy_gram_df_stage": (_P, _P, _P, _P, _I, _I, _I, ctypes.c_double, _I, _I,
+                           _P),
+    # sqh, sql, hi, lo, n, shape, stage, stream
+    "stpy_gram_df_stages": (_P, _P, _P, _P, _I, _I, _I, _P),
     # ah, al, v, vl, oh, ol, m, k, stream
     "stpy_gemv_df": (_P, _P, _P, _P, _P, _P, _I, _I, _P),
     # x, y, out, n, m, d, kappa, inv_g2, stream

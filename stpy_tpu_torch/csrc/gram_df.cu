@@ -17,7 +17,18 @@
 // Design: the layout of csrc/gram.cu in double -- one 64x64 output tile per
 // 256-thread block, 4x4 register sub-tiles strided by 16 for coalesced stores,
 // 16 features of x and y staged in shared memory per pass, ragged edges masked.
+//
+// Stages: the entry is csrc/gram_df_entry.cuh's df_entry, and the STAGE
+// template argument picks the value the kernel writes -- kappa times the entry
+// (STAGE_ENTRY, what stpy_gram_df launches), or the squared distance, t or
+// e^{-t} at the same launch (stpy_gram_df_stage). That second entry point is
+// the counterpart of the round-3 probes' kernels, which dump those stages of
+// the TPU kernel: benchmarks/exp_r3_batch_t.py (d-loop alone, and d-loop plus
+// entry), exp_r3_batch_u.py (d-loop plus entry on the worst pairs) and
+// exp_r3_batch_x.py:_staged_kernel (every stage at the production launch).
 #include <cuda_runtime.h>
+
+#include "gram_df_entry.cuh"
 
 namespace {
 
@@ -26,18 +37,7 @@ constexpr int KC = 16;
 constexpr int TPB = 16;
 constexpr int PER = TILE / TPB;
 
-// Shape codes shared with stpy_tpu_torch/ops/gram.py:SHAPE_CODES.
-template <int SHAPE>
-__device__ __forceinline__ double shape_fn(double sq) {
-  if (SHAPE == 0) return exp(-0.5 * sq);
-  const double nu2 = SHAPE == 1 ? 1.0 : (SHAPE == 2 ? 3.0 : 5.0);   // 2 nu
-  const double t = sqrt(nu2 * sq + 1e-300);                          // as _f64_reference
-  if (SHAPE == 1) return exp(-t);
-  if (SHAPE == 2) return (1.0 + t) * exp(-t);
-  return (1.0 + t + t * t / 3.0) * exp(-t);
-}
-
-template <int SHAPE>
+template <int SHAPE, int STAGE>
 __global__ void __launch_bounds__(TPB * TPB)
 gram_df_kernel(const double* __restrict__ x, const double* __restrict__ y,
                float* __restrict__ hi, float* __restrict__ lo, int n, int m,
@@ -81,13 +81,27 @@ gram_df_kernel(const double* __restrict__ x, const double* __restrict__ y,
     for (int j = 0; j < PER; ++j) {
       const int c = col0 + tx + TPB * j;
       if (c >= m) continue;
-      const double k = kappa * shape_fn<SHAPE>(sq[i][j]);
-      const float h = static_cast<float>(k);
-      const size_t o = (size_t)r * m + c;
-      hi[o] = h;
-      lo[o] = static_cast<float>(k - static_cast<double>(h));
+      const double v = STAGE == STAGE_ENTRY
+                           ? kappa * df_entry<SHAPE>(sq[i][j])
+                           : df_stage<SHAPE, STAGE>(sq[i][j]);
+      store_pair(v, hi, lo, (size_t)r * m + c);
     }
   }
+}
+
+template <int STAGE>
+int launch(const double* x, const double* y, float* hi, float* lo, int n,
+           int m, int d, double kappa, int shape, cudaStream_t s) {
+  const dim3 grid((m + TILE - 1) / TILE, (n + TILE - 1) / TILE);
+  const dim3 block(TPB, TPB);
+  switch (shape) {
+    case 0: gram_df_kernel<0, STAGE><<<grid, block, 0, s>>>(x, y, hi, lo, n, m, d, kappa); break;
+    case 1: gram_df_kernel<1, STAGE><<<grid, block, 0, s>>>(x, y, hi, lo, n, m, d, kappa); break;
+    case 2: gram_df_kernel<2, STAGE><<<grid, block, 0, s>>>(x, y, hi, lo, n, m, d, kappa); break;
+    case 3: gram_df_kernel<3, STAGE><<<grid, block, 0, s>>>(x, y, hi, lo, n, m, d, kappa); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -95,15 +109,20 @@ gram_df_kernel(const double* __restrict__ x, const double* __restrict__ y,
 extern "C" int stpy_gram_df(const double* x, const double* y, float* hi, float* lo,
                             int n, int m, int d, double kappa, int shape,
                             void* stream) {
-  const dim3 grid((m + TILE - 1) / TILE, (n + TILE - 1) / TILE);
-  const dim3 block(TPB, TPB);
+  return launch<STAGE_ENTRY>(x, y, hi, lo, n, m, d, kappa, shape,
+                             static_cast<cudaStream_t>(stream));
+}
+
+// The value of one stage at every (x_i, y_j) pair, as a (hi, lo) pair.
+extern "C" int stpy_gram_df_stage(const double* x, const double* y, float* hi,
+                                  float* lo, int n, int m, int d, double kappa,
+                                  int shape, int stage, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (shape) {
-    case 0: gram_df_kernel<0><<<grid, block, 0, s>>>(x, y, hi, lo, n, m, d, kappa); break;
-    case 1: gram_df_kernel<1><<<grid, block, 0, s>>>(x, y, hi, lo, n, m, d, kappa); break;
-    case 2: gram_df_kernel<2><<<grid, block, 0, s>>>(x, y, hi, lo, n, m, d, kappa); break;
-    case 3: gram_df_kernel<3><<<grid, block, 0, s>>>(x, y, hi, lo, n, m, d, kappa); break;
+  switch (stage) {
+    case STAGE_ENTRY: return launch<STAGE_ENTRY>(x, y, hi, lo, n, m, d, kappa, shape, s);
+    case STAGE_SQ: return launch<STAGE_SQ>(x, y, hi, lo, n, m, d, kappa, shape, s);
+    case STAGE_T: return launch<STAGE_T>(x, y, hi, lo, n, m, d, kappa, shape, s);
+    case STAGE_EXP: return launch<STAGE_EXP>(x, y, hi, lo, n, m, d, kappa, shape, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }

@@ -14,8 +14,8 @@ import torch
 def kernel_wrappers() -> dict:
     """name -> wrapper, for every hand kernel of the port."""
     from stpy_tpu_torch.ops import (
-        chol_leaf, gemv_df, gram, gram_df, gram_l1, gram_matvec, qform_df,
-        syrk,
+        chol_leaf, gemv_df, gram, gram_df, gram_df_stages, gram_l1,
+        gram_matvec, qform_df, syrk,
     )
 
     return {
@@ -28,6 +28,8 @@ def kernel_wrappers() -> dict:
         "gram_matmat": gram_matvec.gram_matmat_scaled,
         "syrk_lower": syrk.syrk_update_lower_,
         "chol_leaf": chol_leaf.chol_leaf_,
+        "gram_df_stages": gram_df_stages.df_entry_stage,
+        "gram_df[stage]": gram_df_stages.gram_df_stage,
     }
 
 

@@ -28,29 +28,38 @@ def split_f64(k: torch.Tensor):
     return hi, (k - hi.to(torch.float64)).to(torch.float32)
 
 
-def _kernel_f64(sq: torch.Tensor, kappa: float, family: str, nu: float):
+def _sq_f64(xs, ys):
+    """Squared distances of f64 coordinates, summed feature by feature."""
+    sq = torch.zeros((xs.shape[0], ys.shape[0]), dtype=torch.float64,
+                     device=xs.device)
+    for c in range(xs.shape[1]):
+        t = xs[:, c, None] - ys[None, :, c]
+        sq.addcmul_(t, t)
+    return sq
+
+
+def _t_f64(sq, family, nu):
+    """The entry's exponent, as csrc/gram_df_entry.cuh:df_t: √(2ν·sq) for
+    Matérn, sq/2 for SE."""
     if family == "se":
-        K = torch.exp(-0.5 * sq)
-    else:
-        t = torch.sqrt(2.0 * nu * sq + 1e-300)
-        if nu == 1.5:
-            K = (1.0 + t) * torch.exp(-t)
-        elif nu == 2.5:
-            K = (1.0 + t + t * t / 3.0) * torch.exp(-t)
-        else:
-            K = torch.exp(-t)
+        return 0.5 * sq
+    return torch.sqrt(2.0 * nu * sq + 1e-300)
+
+
+def _kernel_f64(sq: torch.Tensor, kappa: float, family: str, nu: float):
+    t = _t_f64(sq, family, nu)
+    K = torch.exp(-t)
+    if family == "matern" and nu == 1.5:
+        K = (1.0 + t) * K
+    elif family == "matern" and nu == 2.5:
+        K = (1.0 + t + t * t / 3.0) * K
     return kappa * K
 
 
 def gram_df_plain(xs, ys, kappa, family="se", nu=1.5):
     """Plain PyTorch version of the kernel: f64 differences, shape and κ,
     split into an f32 pair."""
-    sq = torch.zeros((xs.shape[0], ys.shape[0]), dtype=torch.float64,
-                     device=xs.device)
-    for c in range(xs.shape[1]):
-        t = xs[:, c, None] - ys[None, :, c]
-        sq.addcmul_(t, t)
-    return split_f64(_kernel_f64(sq, float(kappa), family, nu))
+    return split_f64(_kernel_f64(_sq_f64(xs, ys), float(kappa), family, nu))
 
 
 def gram_df_scaled(xs, ys, kappa, family="se", nu=1.5):
@@ -90,12 +99,16 @@ def gram_df(x, y, gamma, kappa=1.0, *, family="se", nu=1.5):
     """
     if family not in ("se", "matern"):
         raise NotImplementedError(f"df gram family {family!r}")
-    d = x.shape[1]
+    return gram_df_scaled(scale_coords(x, gamma), scale_coords(y, gamma),
+                          kappa, family, float(nu))
+
+
+def scale_coords(x, gamma):
+    """x·(1/γ) in f64, 1/γ taken in f64 (γ scalar or per-dim): the
+    coordinates `gram_df` hands its kernel."""
     g = torch.as_tensor(gamma, dtype=torch.float64, device=x.device)
-    inv = 1.0 / torch.broadcast_to(g.reshape(-1), (d,))
-    xs = x.to(torch.float64) * inv
-    ys = y.to(torch.float64) * inv
-    return gram_df_scaled(xs, ys, kappa, family, float(nu))
+    inv = 1.0 / torch.broadcast_to(g.reshape(-1), (x.shape[1],))
+    return x.to(torch.float64) * inv
 
 
 def df_add(xh, xl, yh, yl):

@@ -24,21 +24,10 @@ from stpy_tpu_torch.ops import kernel_wrappers, launch_counts
 from stpy_tpu_torch.ops.chol_leaf import MAX_LEAF, _leaf_size, chol_leaf, chol_leaf_
 
 from test_torch_port_gram_matvec import _FakeCuda
+from torch_threads import one_torch_thread  # noqa: F401
 
 F64_RTOL = 2e-5
 JAX_RTOL = 5e-5
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """One intra-op thread for this module, restored afterwards: in a fresh
-    process the first multi-threaded call of torch's CPU `exp` can return
-    part of its output at reduced accuracy (tools/torch_cpu_first_exp.py),
-    and this module can be the first port module a test worker runs."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def se_gram(n, d=3, gamma=0.5, s=0.1, seed=0):

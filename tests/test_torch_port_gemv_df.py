@@ -16,6 +16,8 @@ import jax.numpy as jnp
 from stpy_tpu.ops.pallas_gemv_df import gemv_df_fused
 from stpy_tpu_torch.ops.gemv_df import gemv_df
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 GEMV_RTOL = 1e-13
 
 

@@ -22,6 +22,8 @@ from stpy_tpu_torch import KernelFunction as TorchKernel
 from stpy_tpu_torch import _build
 from stpy_tpu_torch.ops.gram import gram_plain, gram_scaled
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 GRAM_RTOL = 1e-12
 REPO = Path(__file__).resolve().parent.parent
 
@@ -216,7 +218,7 @@ def test_build_command_targets_sm90a_and_every_source():
     names = {src.name for src in srcs}
     assert names == {"gram.cu", "gram_df.cu", "gemv_df.cu", "gram_l1.cu",
                      "qform_df.cu", "gram_matvec.cu", "gram_matmat.cu",
-                     "syrk_lower.cu", "chol_leaf.cu"}
+                     "syrk_lower.cu", "chol_leaf.cu", "gram_df_stages.cu"}
     objs = [Path(f"{src.stem}.o") for src in srcs]
     for src, obj in zip(srcs, objs):
         cmd = _build.compile_command(src, obj)
@@ -228,7 +230,8 @@ def test_build_command_targets_sm90a_and_every_source():
     assert "-shared" in link and "arch=compute_90a,code=sm_90a" in link
     assert [c for c in link if c.endswith(".o")] == [str(o) for o in objs]
     # a header edit builds anew: headers are part of the library's hash
-    assert {h.name for h in _build.headers()} == {"gram_shape.cuh"}
+    assert {h.name for h in _build.headers()} == {"gram_shape.cuh",
+                                                  "gram_df_entry.cuh"}
     assert _build.library_path().parent.parent == _build.BUILD_ROOT
 
 

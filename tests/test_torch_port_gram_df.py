@@ -20,6 +20,7 @@ from stpy_tpu_torch.kernels import df_plan
 from stpy_tpu_torch.ops.gram_df import df_add, df_mul, gram_df, split_f64
 
 from test_torch_port_gram import CASES, jax_kernel, torch_kernel
+from torch_threads import one_torch_thread  # noqa: F401
 
 DF_RTOL = 1e-13
 

@@ -22,6 +22,8 @@ from stpy_tpu_torch.kernels import functions as F
 from stpy_tpu_torch.ops.gram import gram
 from stpy_tpu_torch.ops.gram_l1 import gram_l1, gram_l1_plain, gram_laplace
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 GRAM_RTOL = 1e-12
 F32_ATOL = 1e-6
 KAPPA = 1.3

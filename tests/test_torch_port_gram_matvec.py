@@ -33,6 +33,8 @@ from stpy_tpu_torch.ops.gram_matvec import (
     make_lazy_matvec,
 )
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 RTOL = 1e-10
 PALLAS_ATOL = 1e-4
 REPO = Path(__file__).resolve().parent.parent

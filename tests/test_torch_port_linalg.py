@@ -19,6 +19,7 @@ from stpy_tpu_torch import linalg as tl
 from stpy_tpu_torch.config import default_jitter
 
 from test_torch_port_gram_matvec import _FakeCuda
+from torch_threads import one_torch_thread  # noqa: F401
 
 RTOL = 1e-10
 

@@ -23,6 +23,8 @@ from stpy_tpu_torch.ops.qform_df import (
     qform_refined_strip,
 )
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 QFORM_RTOL = 1e-13
 S = 0.35
 

@@ -33,6 +33,7 @@ from stpy_tpu_torch.ops.syrk import (
 
 from test_torch_port_chol_leaf import rel_to_factor, se_gram
 from test_torch_port_gram_matvec import _FakeCuda
+from torch_threads import one_torch_thread  # noqa: F401
 
 # syrk, lower triangle, error over (|W||W|ᵀ)ᵢⱼ: JAX's bf16x3 measures ~5.6e-6
 # against float64, so port vs JAX 2e-5; a plain f32 product ~5.7e-7 at
@@ -48,18 +49,6 @@ CHOL_JAX_RTOL, CHOL_F64_RTOL = 2e-4, 2e-5
 # ~2.6e-5 mean, 1.4e-3 variance max).
 MEAN_RTOL, VAR_RTOL, MEAN_JAX_RTOL = 1e-4, 1e-2, 2e-4
 S = 0.1
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """One intra-op thread for this module, restored afterwards: in a fresh
-    process the first multi-threaded call of torch's CPU `exp` can return
-    part of its output at reduced accuracy (tools/torch_cpu_first_exp.py),
-    and this module can be the first port module a test worker runs."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def syrk_operands(m, k, seed):
