@@ -17,8 +17,10 @@ a dense float64 posterior (single and double precision), and at n = 65536
 rank-2048 preconditioner held to its float64 residual; then (phase 11) the
 fast blocked Cholesky (linalg.chol_dense(fast=True) on the chol_leaf and
 syrk_lower kernels) in benchmarks/exp_fastchol.py's three variants at
-n = 16384 against the same float64 posterior; last (phase 12) the df-entry
-stage probe (stpy_tpu_torch/probes/exp_r3_df_entry.py, the port of
+n = 16384 against the same float64 posterior, and a diagnosis of its
+variance (the factor rebuilt with one piece swapped at a time); last
+(phase 12) the df-entry stage probe (stpy_tpu_torch/probes/
+exp_r3_df_entry.py, the port of
 benchmarks/exp_r3_batch_{p,t,u,x}.py) at full size, every stage of the
 df Matérn entry held to 1e-13 of host float64 and 40-digit decimal, on the
 gram_df_stages kernel and gram_df.cu's stage launch. The launch counters, zeroed
@@ -56,7 +58,9 @@ from stpy_tpu_torch import GaussianProcess, KernelFunction, _build, linalg
 from stpy_tpu_torch.ops import (
     gram_df_stages, launch_counts, reset_launch_counts,
 )
-from stpy_tpu_torch.ops.chol_leaf import chol_leaf, chol_leaf_plain
+from stpy_tpu_torch.ops.chol_leaf import (
+    MAX_LEAF, chol_leaf, chol_leaf_, chol_leaf_grid, chol_leaf_plain,
+)
 from stpy_tpu_torch.ops.gemv_df import gemv_df, gemv_df_plain
 from stpy_tpu_torch.ops.gram import gram_plain, gram_scaled
 from stpy_tpu_torch.ops.gram_df import (
@@ -85,6 +89,9 @@ GAMMA = 0.5
 LAPLACE_GAMMA = 2.0              # exp(-|x-y|_1/4): off-diagonals ~0.26
 S = 0.1
 RAGGED = (300, 517, 3)           # n, m, d: every tile edge is ragged
+# n, m, d: more features than gram_matmat stages in shared memory (384),
+# the coordinates scaled by sqrt(D / d) to d = 8's spread of distances
+WIDE = (300, 517, 512)
 QFORM_RAGGED = (300, 517, 211)   # c, n, t: no edge is a multiple of a tile
 FAMILIES = (("se", 1.5), ("matern", 1.5))
 
@@ -146,6 +153,25 @@ def matvec_rtol(m):
     return 2.0 * math.sqrt(m) * EPS32
 
 
+# gram_matmat at a handful of y points (an IterativeGP on a few training
+# points sends m = n): there the f32 entries' own rounding, a few ulps of
+# |x|^2 + |y|^2 in sq in any f32 kernel of these entries, can exceed
+# matvec_rtol(m) against float64, so the product with V is held against the
+# float64 product of the kernel's own f32 entries (the gram kernel's: the
+# same FMA chain, sq_from_chain and shape_fn). The three TF32 passes err by
+# at most 3·2⁻²² of |K_ij||V_jc| a term, and the tensor cores' truncating
+# f32 sums add an error that grows with m; the bar is 8·eps32 = 4·2⁻²², or
+# matvec_rtol(m) where that is larger. The
+# IterativeGP on FEW_N training points is held to a float64 posterior at
+# the lazy tiers' bars.
+FEW_M = (1, 2, 3, 5, 8, 16, 33, 100)
+FEW_N, FEW_T = 5, 3
+
+
+def matmat_product_rtol(m):
+    return max(8.0 * EPS32, matvec_rtol(m))
+
+
 # lazy-tier bars against float64: at n = 32768 the single tier's mean 1e-3
 # and variance max 1e-2 (both above the f32 CG floor, ~sqrt(n)·eps32), the
 # double tier's mean 1e-6 (the ROADMAP's 1e-7 printed beside); at n = 65536
@@ -165,10 +191,13 @@ LAZY_BIG_RANK = 2048
 # The fast blocked Cholesky (phase 2d, phase 11): its block size, the
 # trailing update's shapes -- ragged, and the first (largest) of the fast
 # factor's seven at n = 16384 (benchmarks/exp_chol3.py's probe shape) --
-# and the leaf sizes, the largest and a ragged one.
+# and the leaf sizes: the largest, a ragged one, and one full panel and a
+# one-column one; the launches at the largest that must agree bit for bit
+# (a race between the grid's blocks shows as a rare bit difference).
 FAST_NB = 2048
 SYRK_RAGGED, SYRK_PROBE = (1000, 300), (N - FAST_NB, FAST_NB)
-LEAF_SIZES = (1024, 1000)
+LEAF_SIZES = (1024, 1000, 33)
+LEAF_REPEATS = 20
 # syrk_lower against its plain version (cuBLAS SGEMM) on the lower
 # triangle, error over (|W||W|ᵀ)ᵢⱼ: each side's f32 sum of k products errs
 # by at most k·2⁻²⁴ of it, the subtraction from T by one rounding more;
@@ -223,9 +252,15 @@ REPLACES = {
                        "benchmarks/exp_r3_batch_u.py:109, "
                        "benchmarks/exp_r3_batch_x.py:48"),
 }
+# the device kernels phase 10 counts under a name, where not `<name>_kernel`:
+# gram_matmat's call runs its two pre-passes too
+PROFILE_KERNELS = {"gram_matmat": ("gram_matmat_kernel", "split_v_kernel",
+                                   "pad_y_kernel"),
+                   "geqrf": ("geqrf",), "orgqr": ("orgqr",)}
 # H100 SXM data-sheet peaks, dense: HBM3 bytes/s, f32 outside the tensor
-# cores, FP64 outside them and FP64 on the tensor cores (flop/s)
+# cores, FP64 outside them, FP64 and TF32 on the tensor cores (flop/s)
 HBM_BPS, F32_FLOPS, F64_FLOPS, F64_MMA_FLOPS = 3.35e12, 67e12, 34e12, 67e12
+TF32_FLOPS = 495e12
 # special-function unit (exp, sqrt): 16 results per clock per SM, 132 SMs at
 # the 1.98 GHz boost clock of the SXM part
 SFU_OPS = 16 * 132 * 1.98e9
@@ -322,6 +357,19 @@ def matvec_bound(n, m, d, family, r=None):
     t_bytes = 4 * ((n + m) * d + (n + m) * cols) / HBM_BPS * 1e3
     t_ops = n * m * max((2 * d + shape_ops + 2 * cols) / F32_FLOPS,
                         sfu / SFU_OPS) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def matmat_tc_bound(n, m, d, family, r):
+    """gram_matmat as csrc/gram_matmat.cu computes it: the product with V in
+    three TF32 passes on the tensor cores, 3·2·n·m·r operations over
+    TF32_FLOPS, against the Gram entries' 2d + shape f32 operations over
+    F32_FLOPS, their exps and sqrts over SFU_OPS, and the bytes of
+    `matvec_bound`; the largest of these."""
+    shape_ops, sfu = (2, 1) if family == "se" else (4, 2)
+    t_bytes = 4 * ((n + m) * d + (n + m) * r) / HBM_BPS * 1e3
+    t_ops = max(6 * n * m * r / TF32_FLOPS, n * m * (2 * d + shape_ops) / F32_FLOPS,
+                n * m * sfu / SFU_OPS) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -563,7 +611,8 @@ def matvec_checks(dev):
     (error over Σ_j |K_ij||v_j|, bar `matvec_rtol`), bitwise repeatable, for
     each atom of the lazy tiers' kernel (SE γ = 0.5, Matérn-3/2 γ = 0.8): a
     ragged shape (r = 77 and 200), the bench shape n = m = 16384 and the
-    65k lazy tier's shape, r = 128, on the fit's own operator K(x, x).
+    65k lazy tier's shape, r = 128, on the fit's own operator K(x, x), and
+    the ragged shape at d = 512 (WIDE, r = 77).
     Returns name -> max abs error; the SE timings at 16k and 65k (kernel,
     plain f32); cuBLAS SGEMM of the materialised 16k Gram by a 128-column
     block (not the same function)."""
@@ -572,12 +621,16 @@ def matvec_checks(dev):
     times = {}
     sgemm_ms = None
     for label, (n, m, d) in (("ragged", RAGGED), ("16k", (N, N, D)),
-                             ("65k", (LAZY_BIG_N, LAZY_BIG_N, D))):
-        x = rng.uniform(-1, 1, (n, d))
-        y = x if label != "ragged" else rng.uniform(-1, 1, (m, d))
+                             ("65k", (LAZY_BIG_N, LAZY_BIG_N, D)),
+                             ("wide", WIDE)):
+        spread = math.sqrt(D / d) if label == "wide" else 1.0
+        x = rng.uniform(-1, 1, (n, d)) * spread
+        y = (rng.uniform(-1, 1, (m, d)) * spread
+             if label in ("ragged", "wide") else x)
         v = torch.as_tensor(rng.standard_normal(m), dtype=torch.float32,
                             device=dev)
-        rs = RAGGED_R if label == "ragged" else (MATMAT_R,)
+        rs = {"ragged": RAGGED_R, "wide": RAGGED_R[:1]}.get(label,
+                                                             (MATMAT_R,))
         Vs = [torch.as_tensor(rng.standard_normal((m, r)), dtype=torch.float32,
                               device=dev) for r in rs]
         for fam, nu, gamma in LAZY_ATOMS:
@@ -598,7 +651,7 @@ def matvec_checks(dev):
                       "repeatable")
                 assert rel <= matvec_rtol(m), ("gram_matmat", label, fam, rel)
                 err["gram_matmat"] = max(err["gram_matmat"], e)
-            if label == "ragged" or fam != "se":
+            if label in ("ragged", "wide") or fam != "se":
                 continue
             V = Vs[0]
             times[label] = {
@@ -613,10 +666,14 @@ def matvec_checks(dev):
             }
             for name, r in (("gram_matvec", None), ("gram_matmat", MATMAT_R)):
                 k_ms, p_ms = times[label][name]
-                b_ms, b_by = matvec_bound(n, m, d, fam, r)
+                bnd = matvec_bound if r is None else matmat_tc_bound
+                b_ms, b_by = bnd(n, m, d, fam, r)
+                extra = "" if r is None else (
+                    f"; all on the f32 pipes, as matvec_bound: "
+                    f"{matvec_bound(n, m, d, fam, r)[0]!r} ms")
                 print(f"  {name} {label} SE: kernel {k_ms!r} ms, plain "
                       f"{p_ms!r} ms, bound {b_ms!r} ms ({b_by}; Matérn-3/2: "
-                      f"{matvec_bound(n, m, d, 'matern', r)[0]!r} ms)")
+                      f"{bnd(n, m, d, 'matern', r)[0]!r} ms{extra})")
             if label == "16k":
                 K = gram_scaled(xs, ys, 1.0, fam, nu)
                 sgemm_ms = cuda_ms(lambda: K @ V, reps=3)
@@ -626,6 +683,57 @@ def matvec_checks(dev):
                 del K
             torch.cuda.empty_cache()
     return err, times, sgemm_ms
+
+
+def matmat_few_points_checks(dev):
+    """Phase 2c at the fewest y points: gram_matmat at each m of FEW_M, for
+    each lazy atom, r = 1 and 77, on the fit's operator K(x, x) (n = m) and
+    on 130 other rows, bitwise repeatable, held against the float64 product
+    of the gram kernel's f32 entries at `matmat_product_rtol(m)`; its error
+    against float64 (bar `matvec_rtol(m)`, out of reach there for f32
+    entries) printed beside. Then `IterativeGP(lazy=True)` on FEW_N points,
+    its mean_std on FEW_T (gram_matmat at m = FEW_N) against a float64
+    posterior. Returns the largest abs error against the product."""
+    rng = np.random.default_rng(4)
+    worst = 0.0
+    for m in FEW_M:
+        rel_p = rel_f = 0.0
+        for fam, nu, gamma in LAZY_ATOMS:
+            y = torch.as_tensor(rng.uniform(-1, 1, (m, D)) / gamma,
+                                dtype=torch.float32, device=dev)
+            others = torch.as_tensor(rng.uniform(-1, 1, (130, D)) / gamma,
+                                     dtype=torch.float32, device=dev)
+            for xs in (y, others):
+                for r in (1, RAGGED_R[0]):
+                    V = torch.as_tensor(rng.standard_normal((m, r)),
+                                        dtype=torch.float32, device=dev)
+                    _, rel = matvec_error(gram_matmat_scaled, xs, y, V, fam,
+                                          nu)
+                    out = gram_matmat_scaled(xs, y, V, 1.0, fam, nu).double()
+                    K = gram_scaled(xs, y, 1.0, fam, nu).double()
+                    diff = (out - K @ V.double()).abs()
+                    worst = max(worst, float(diff.max()))
+                    rel_p = max(rel_p, float(
+                        (diff / (K @ V.double().abs())).max()))
+                    rel_f = max(rel_f, rel)
+        print(f"  gram_matmat m={m}: max err / sum|K||V| against the float64 "
+              f"product of its own f32 entries {rel_p!r} (bar "
+              f"{matmat_product_rtol(m)!r}); against float64 {rel_f!r} "
+              f"(matvec_rtol {matvec_rtol(m)!r}); repeatable")
+        assert rel_p <= matmat_product_rtol(m), ("gram_matmat", m, rel_p)
+    x, y, xt = bench_data(dev, FEW_N, FEW_T)
+    mu64, var64, _ = reference_f64(x, y, xt, s=LAZY_S, kern=lazy_kernel_matrix,
+                                   prior_var=float(len(LAZY_ATOMS)))
+    gp = IterativeGP(lazy_kernel(dev), s=LAZY_S, lazy=True)
+    gp.fit_gp(x, y)
+    (mu, sd), _, counts = counted(lambda: gp.mean_std(xt))
+    few = posterior_errors(mu, sd, mu64, var64)
+    print(f"  IterativeGP(lazy=True), n = {FEW_N}, t = {FEW_T}: mean rel err "
+          f"{few[0]!r} (bar {LAZY_MEAN_RTOL}), var rel err max {few[1]!r} "
+          f"(bar {LAZY_VAR_RTOL}); mean_std launches {counts}")
+    assert few[0] <= LAZY_MEAN_RTOL and few[1] <= LAZY_VAR_RTOL, few
+    assert counts["gram_matmat"] > 0, counts
+    return worst
 
 
 def se_system(x):
@@ -656,11 +764,14 @@ def chol_checks(dev, x):
     strict upper untouched, the buffer around the view untouched) and at
     the fast factor's first step on the 16k SE system (m = 14336,
     k = 2048: T = A22, W = A21·L11⁻ᵀ); the leaf on the SE system's leading
-    1024 and 1000 block against its plain version and a float64 factor,
-    and on −I (non-finite out); both bitwise repeatable. Returns name ->
-    max abs error, the timed pairs, bounds and library times: syrk at the
-    probe shape against torch.addmm (the full square), the leaf at 1024
-    against cholesky_ex and, printed beside, `_leaf_chol_` at 2048."""
+    1024, 1000 and 33 block against its plain version and a float64
+    factor (LEAF_REPEATS launches bitwise equal at 1024, two elsewhere),
+    on −I (non-finite out), and in place on a strided view of a larger
+    buffer (equal to the copy's factor, nothing outside the view written).
+    Returns name -> max abs error, the timed pairs (and the leaf's grid per
+    size), bounds and library times: syrk at the probe shape against
+    torch.addmm (the full square), the leaf at 1024 against cholesky_ex
+    and, printed beside, `_leaf_chol_` at 2048."""
     rng = np.random.default_rng(4)
     err, times, bounds, library = {}, {}, {}, {}
     m, k = SYRK_RAGGED
@@ -703,10 +814,14 @@ def chol_checks(dev, x):
     torch.cuda.empty_cache()
 
     err["chol_leaf"] = 0.0
+    grids = {}
     for n in LEAF_SIZES:
         B = A[:n, :n].contiguous()
         L = chol_leaf(B)
-        assert torch.equal(L, chol_leaf(B)), "two launches gave different bits"
+        reps = LEAF_REPEATS if n == MAX_LEAF else 2
+        assert all(torch.equal(L, chol_leaf(B)) for _ in range(reps - 1)), \
+            f"{reps} launches gave different bits"
+        grids[n] = chol_leaf_grid(n)
         assert bool((L.triu(1) == 0).all()), "the upper triangle is not 0"
         P = chol_leaf_plain(B)
         L64 = torch.linalg.cholesky(B.double())
@@ -714,16 +829,36 @@ def chol_checks(dev, x):
         e = float((L - P).abs().max())
         e64 = float((L.double() - L64).abs().max()) / top
         p64 = float((P.double() - L64).abs().max()) / top
-        print(f"  chol_leaf n={n} (the 16k SE system's leading block): max abs "
-              f"err {e!r} (plain f32), max err / max|L64| {e64!r} (float64, "
-              f"bar {LEAF_F64_RTOL}), plain against float64 {p64!r}, "
-              "repeatable, upper triangle 0")
+        print(f"  chol_leaf n={n} (the 16k SE system's leading block; "
+              f"cooperative launch of {grids[n]} blocks): max abs err {e!r} "
+              f"(plain f32), max err / max|L64| {e64!r} (float64, bar "
+              f"{LEAF_F64_RTOL}), plain against float64 {p64!r}, bitwise "
+              f"equal over {reps} launches, upper triangle 0")
         assert e64 <= LEAF_F64_RTOL and p64 <= LEAF_F64_RTOL, ("chol_leaf", n, e64, p64)
         assert e / top <= LEAF_PLAIN_RTOL, ("chol_leaf", n, e)
         err["chol_leaf"] = max(err["chol_leaf"], e)
     bad = chol_leaf(-torch.eye(LEAF_SIZES[0], device=dev))
     assert not bool(torch.isfinite(bad).all()), "chol_leaf(-I) came out finite"
     print("  chol_leaf(-I): non-finite, as the jitter ladder needs")
+    # in place on a strided view inside a larger buffer, as the fast
+    # factor's blocks are factored
+    n = LEAF_SIZES[1]
+    buf = torch.as_tensor(rng.standard_normal((n + 40, n + 300)),
+                          dtype=torch.float32, device=dev)
+    view = buf[16:16 + n, 200:200 + n]
+    view.copy_(A[:n, :n])
+    before = buf.clone()
+    chol_leaf_(view)
+    assert torch.equal(view, chol_leaf(A[:n, :n].contiguous())), \
+        "the strided leaf differs from the copy's"
+    outside = torch.ones_like(buf, dtype=torch.bool)
+    outside[16:16 + n, 200:200 + n] = False
+    assert torch.equal(buf[outside], before[outside]), "wrote outside its view"
+    print(f"  chol_leaf n={n} in place on a strided view (row stride "
+          f"{view.stride(0)}): equal to the contiguous copy's factor, the "
+          "buffer around it untouched")
+    times["chol_leaf_grid"] = grids
+    del buf, view, before, outside
     n = LEAF_SIZES[0]
     B = A[:n, :n].contiguous()
     times["chol_leaf"] = timed_pair(lambda: chol_leaf(B),
@@ -748,26 +883,89 @@ def backward_error(L, A, jitter):
     return float(R.tril_().abs_().max() / A.abs().max())
 
 
-def fast_variant(kernel, x, y, xt, fast, refine):
+def fast_variant(kernel, x, y, xt, fast, refine, factor=None):
     """benchmarks/exp_fastchol.py's pipeline on the port: A = K + s²I by
-    the gram kernel, `safe_cholesky(A, fast=fast)`, α by cho_solve, with
-    `refine` one α-refinement step on the residual y − A·α (torch.matmul,
-    f32), the cross Gram, mean, trisolve and variance. Returns (mu (t, 1),
-    var (t,), L, A, jitter)."""
+    the gram kernel, `safe_cholesky(A, fast=fast)` (or, given, `factor(A)`
+    with no jitter), α by cho_solve, with `refine` one α-refinement step on
+    the residual y − A·α (torch.matmul, f32), the cross Gram, mean,
+    trisolve and variance. Returns (mu (t, 1), var (t,), L, A, jitter)."""
     pd = kernel.params_dict
     A = kernel.eval_params(pd, x, x)
     A.diagonal().add_(S * S)
-    res = linalg.safe_cholesky(A, fast=fast)
-    assert bool(res.ok), "the factorization failed"
-    alpha = linalg.cho_solve_blocked(res.L, y)
+    if factor is None:
+        res = linalg.safe_cholesky(A, fast=fast)
+        assert bool(res.ok), "the factorization failed"
+        L, jitter = res.L, float(res.jitter)
+    else:
+        L, jitter = factor(A), 0.0
+        assert bool(torch.isfinite(L).all()), "the factorization failed"
+    alpha = linalg.cho_solve_blocked(L, y)
     if refine:
-        alpha += linalg.cho_solve_blocked(res.L, y - A @ alpha)
+        alpha += linalg.cho_solve_blocked(L, y - A @ alpha)
     Ks = kernel.eval_params(pd, xt, x)
     mu = Ks @ alpha
-    V = linalg.tri_solve_blocked(res.L, Ks.T)
+    V = linalg.tri_solve_blocked(L, Ks.T)
     del Ks
     var = kernel.diag(xt) - (V * V).sum(0)
-    return mu, var, res.L, A, float(res.jitter)
+    return mu, var, L, A, jitter
+
+
+def factor_errors(kernel, x, y, xt, factor, mu64, var64):
+    """`fast_variant` with `factor`: its posterior errors against (mu64,
+    var64) and its backward error."""
+    mu, var, L, A, _ = fast_variant(kernel, x, y, xt, True, False,
+                                    factor=factor)
+    vrel = ((var.double() - var64).abs() / var64).cpu()
+    out = {"mean": mean_error(mu, mu64), "var_max": float(vrel.max()),
+           "var_median": float(vrel.median()),
+           "backward": backward_error(L, A, 0.0)}
+    del mu, var, L, A
+    torch.cuda.empty_cache()
+    return out
+
+
+def rebuilt_fast_factor(A, panels="inverse", leaves="kernel", nb=FAST_NB):
+    """ops/syrk.chol_blocked_syrk's factor of A (n a multiple of nb, as at
+    n = 16384) rebuilt from the port's pieces, for phase 11's diagnosis of
+    its variance. panels="inverse" forms each panel as the port does,
+    W = B·(L⁻¹)ᵀ with L⁻¹ from a triangular solve against I (ops/syrk.py,
+    in `chol_blocked_syrk` and in `_leaf_chol_`'s split of a 2048 block);
+    "solve" forms W by torch.linalg.solve_triangular on B itself.
+    leaves="kernel" factors each 1024 leaf with chol_leaf_; "cholesky_ex"
+    with torch.linalg.cholesky_ex."""
+    def leaf(T):
+        if leaves == "kernel":
+            chol_leaf_(T)
+        else:
+            T.copy_(torch.linalg.cholesky_ex(T)[0])
+
+    def panel(W, D):   # W ← W·D⁻ᵀ
+        if panels == "solve":
+            W.copy_(torch.linalg.solve_triangular(D.T, W, upper=True,
+                                                  left=False))
+        else:
+            eye = torch.eye(D.shape[0], dtype=D.dtype, device=D.device)
+            W.copy_(W @ torch.linalg.solve_triangular(D, eye, upper=False).T)
+
+    def block(T):      # `_leaf_chol_`
+        if T.shape[0] <= MAX_LEAF:
+            return leaf(T)
+        h = T.shape[0] // 2
+        block(T[:h, :h])
+        panel(T[h:, :h], T[:h, :h])
+        T[h:, h:].addmm_(T[h:, :h], T[h:, :h].T, alpha=-1.0)
+        block(T[h:, h:])
+        T[:h, h:].zero_()
+
+    L = A.tril()
+    for s in range(0, L.shape[0], nb):
+        D = L[s:s + nb, s:s + nb]
+        block(D)
+        if s + nb < L.shape[0]:
+            W = L[s + nb:, s:s + nb]
+            panel(W, D)
+            syrk_update_lower_(L[s + nb:, s + nb:], W)
+    return L.tril_()
 
 
 def kernel_matrix(family, gamma, a, b):
@@ -962,11 +1160,13 @@ def profile_run(label, run, top=10, ops=LINALG_OPS):
     for name, (t, c) in sorted(per_name.items(), key=lambda kv: -kv[1][0])[:top]:
         print(f"    {t / 1e3:10.3f} ms  x{c:<4d} {name[:100]}")
     for kname in (*REPLACES, "geqrf", "orgqr"):
-        hits = [tc for name, tc in per_name.items() if f"{kname}_kernel" in name
-                or kname in ("geqrf", "orgqr") and kname in name]
+        stems = PROFILE_KERNELS.get(kname, (f"{kname}_kernel",))
+        hits = [tc for name, tc in per_name.items()
+                if any(stem in name for stem in stems)]
         if hits:
             print(f"    kernel {kname}: {sum(t for t, _ in hits) / 1e3!r}"
-                  f" ms over {sum(c for _, c in hits)} launches")
+                  f" ms over {sum(c for _, c in hits)} launches"
+                  + (f" of {', '.join(stems)}" if len(stems) > 1 else ""))
     # device time of every kernel launched inside each linalg op of the path
     for avg in prof.key_averages():
         if avg.key in ops:
@@ -994,9 +1194,14 @@ def fast_chol_phase(dev, kernel, mu64, var64):
     backward error printed (the fast one held to FAST_BACKWARD_RATIO times
     the default's), its launches counted on its first run (16 chol_leaf and
     7 syrk_lower for the fast factor at n = 16384, none for the default),
-    its warm wall the median of 3. Then the two factors alone on A by CUDA
-    events, and the device memory each adds at its peak. Returns (per
-    variant results, factor ms, peak GiB)."""
+    its warm wall the median of 3. Then the diagnosis of the fast factor's
+    variance on A without jitter: `rebuilt_fast_factor` as built (held
+    bitwise to chol_dense(fast=True)), with its panels by triangular solves
+    and with its leaves by cholesky_ex, each one's posterior errors and
+    backward error printed (tools/fast_chol_variance.py sweeps the block
+    size). Then the two factors alone on A by CUDA events, and the device
+    memory each adds at its peak. Returns (per variant results, factor ms,
+    peak GiB, the diagnosis)."""
     x, y, xt = bench_data(dev)
     try:
         linalg.chol_dense(torch.eye(8, dtype=torch.float64, device=dev),
@@ -1040,6 +1245,29 @@ def fast_chol_phase(dev, kernel, mu64, var64):
             assert kernels == (0, 0) and counts["gram"] > 0, counts
     assert fast["fast"]["backward"] <= (FAST_BACKWARD_RATIO
                                         * fast["default"]["backward"]), fast
+    # What puts the fast factor's variance max above the default's at an
+    # equal backward error: the fast factor rebuilt from the port's pieces
+    # (bitwise chol_dense(fast=True)'s), then with one piece swapped, each
+    # on A without the jitter safe_cholesky adds.
+    def as_built(A_):
+        L = rebuilt_fast_factor(A_)
+        assert torch.equal(L, linalg.chol_dense(A_, fast=True)), \
+            "the rebuilt fast factor differs from chol_dense(fast=True)"
+        return L
+
+    diagnosis = {}
+    variants = (
+        ("fast factor as built (bitwise chol_dense(fast=True))", as_built),
+        ("fast factor, panels by solve_triangular",
+         lambda A_: rebuilt_fast_factor(A_, panels="solve")),
+        ("fast factor, cholesky_ex leaves",
+         lambda A_: rebuilt_fast_factor(A_, leaves="cholesky_ex")))
+    for label, factor in variants:
+        diagnosis[label] = dg = factor_errors(kernel, x, y, xt, factor,
+                                              mu64, var64)
+        print(f"  diagnosis, no jitter, {label}: mean rel err "
+              f"{dg['mean']!r}, var rel err max {dg['var_max']!r} median "
+              f"{dg['var_median']!r}; backward error {dg['backward']!r}")
     A = se_system(x)
     factor_ms = {"fast": cuda_ms(lambda: linalg.chol_dense(A, fast=True), 3),
                  "cholesky_ex": cuda_ms(lambda: torch.linalg.cholesky_ex(A), 3)}
@@ -1058,7 +1286,7 @@ def fast_chol_phase(dev, kernel, mu64, var64):
           f" ms; device memory it adds at its peak beyond A "
           f"({A.numel() * 4 / 2**30!r} GiB): fast {peaks['fast']!r} GiB, "
           f"cholesky_ex {peaks['cholesky_ex']!r} GiB")
-    return fast, factor_ms, peaks
+    return fast, factor_ms, peaks, diagnosis
 
 
 def pair_error(got, want):
@@ -1190,14 +1418,18 @@ def main(argv=None) -> int:
     bounds = ktimes.pop("bounds") | {"qform_df": qform_bound(N, N, NTEST)}
     errs_mv, mv_times, sgemm_ms = matvec_checks(dev)
     errs |= errs_mv
+    errs["gram_matmat"] = max(errs["gram_matmat"],
+                              matmat_few_points_checks(dev))
     # the record carries the lazy tier's shape (65k, SE), the main path's
     ktimes |= mv_times["65k"]
-    bounds |= {name: matvec_bound(LAZY_BIG_N, LAZY_BIG_N, D, "se", r)
-               for name, r in (("gram_matvec", None),
-                               ("gram_matmat", MATMAT_R))}
+    bounds |= {"gram_matvec": matvec_bound(LAZY_BIG_N, LAZY_BIG_N, D, "se"),
+               "gram_matmat": matmat_tc_bound(LAZY_BIG_N, LAZY_BIG_N, D, "se",
+                                              MATMAT_R)}
+    matmat_f32_bound = matvec_bound(LAZY_BIG_N, LAZY_BIG_N, D, "se", MATMAT_R)
     errs_chol, chol_times, chol_bounds, library = chol_checks(dev, x)
     errs |= errs_chol
     leaf2048 = chol_times.pop("leaf_chol_2048")
+    leaf_grids = chol_times.pop("chol_leaf_grid")
     ktimes |= chol_times
     bounds |= chol_bounds
 
@@ -1284,6 +1516,8 @@ def main(argv=None) -> int:
         print(f"  {name}: kernel {k_ms!r} ms, plain {p_ms!r} ms, bound "
               f"{bounds[name][0]!r} ms ({bounds[name][1]}) at "
               f"{shapes.get(name, 'the bench shape')}")
+    print(f"  gram_matmat: its bound with the product on the f32 pipes "
+          f"(matvec_bound) {matmat_f32_bound[0]!r} ms")
     print(f"  qform_df: cuBLAS f64 DGEMM of the same (c, n)·(n, t) product "
           f"(a library product, not the same function) {qtimes[2]!r} ms")
     print(f"  syrk_lower: torch.addmm(T, W, W.T, alpha=-1) {library['syrk_lower']!r}"
@@ -1440,7 +1674,7 @@ def main(argv=None) -> int:
     print(f"== phase 11: the fast factor (chol_dense(fast=True)) in "
           f"benchmarks/exp_fastchol.py's three variants, n = ntest = {N}, "
           f"d = {D}, SE gamma = {GAMMA}, s = {S}, against float64")
-    fast, factor_ms, peaks = fast_chol_phase(dev, se, *se_ref)
+    fast, factor_ms, peaks, diagnosis = fast_chol_phase(dev, se, *se_ref)
     launches |= {"syrk_lower": ("fast_chol",
                                 fast["fast"]["launches"]["syrk_lower"]),
                  "chol_leaf": ("fast_chol",
@@ -1468,6 +1702,8 @@ def main(argv=None) -> int:
          "library_ms": library.get(name)}
         for name in REPLACES
     ], "qform_df_dgemm_ms": qtimes[2], "gram_matmat_sgemm_16k_ms": sgemm_ms,
+        "gram_matmat_f32_pipe_bound_ms": matmat_f32_bound[0],
+        "chol_leaf_grid": leaf_grids,
         "leaf_chol_2048_ms": leaf2048[0],
         "cholesky_ex_2048_ms": leaf2048[1],
         "walls_s": walls,
@@ -1483,7 +1719,7 @@ def main(argv=None) -> int:
         "lazy_65k_defaults_unsegmented_fit_status": unseg_status,
         "lazy_32k_precond_basis": basis,
         "fast_chol": {**fast, "factor_ms": factor_ms,
-                      "factor_peak_gib": peaks},
+                      "factor_peak_gib": peaks, "diagnosis": diagnosis},
         "df_entry_probe": probe}
     print(json.dumps(record))
     print(card_line())

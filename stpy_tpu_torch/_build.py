@@ -72,12 +72,15 @@ _SIGNATURES = {
     "stpy_qform_df_row_tiles": (_I,),
     # x, y, v, out, n, m, d, kappa, shape, stream
     "stpy_gram_matvec": (_P, _P, _P, _P, _I, _I, _I, ctypes.c_float, _I, _P),
-    # x, y, V, out, n, m, d, r, kappa, shape, stream
-    "stpy_gram_matmat": (_P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _I, _P),
+    # x, y, V, out, vth, vtl, yt, n, m, d, r, kappa, shape, stream
+    "stpy_gram_matmat": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                         ctypes.c_float, _I, _P),
     # C, W, m, k, ldc, ldw, stream
     "stpy_syrk_lower": (_P, _P, _I, _I, _I, _I, _P),
     # A, n, lda, stream
     "stpy_chol_leaf": (_P, _I, _I, _P),
+    # n -> blocks of the leaf's cooperative launch
+    "stpy_chol_leaf_grid": (_I,),
 }
 
 _lock = threading.Lock()

@@ -3,8 +3,10 @@
 Port of stpy_tpu/ops/pallas_chol.py (`chol_leaf`), the leaf of the fast
 blocked factorization (`ops/syrk.chol_blocked_syrk`). For CUDA tensors
 `chol_leaf` / `chol_leaf_` launch csrc/chol_leaf.cu (float32, n ≤ 1024,
-rows of unit stride); for CPU tensors they run `chol_leaf_plain`, the same
-right-looking 32-column panel algorithm in PyTorch ops, in float32.
+rows of unit stride): one cooperative launch whose blocks share every
+32-column panel, `chol_leaf_grid(n)` of them; for CPU tensors they run
+`chol_leaf_plain`, the same right-looking 32-column panel algorithm in
+PyTorch ops, in float32.
 
 Only the lower triangle of the input is read; the factor's strict upper
 triangle is exactly 0. A pivot that is not positive gives NaN (sqrt of a
@@ -20,7 +22,7 @@ import torch
 from stpy_tpu_torch import _build
 from stpy_tpu_torch.ops import check_cuda_inputs
 
-MAX_LEAF = 1024   # one block's shared memory holds a 1024-row panel
+MAX_LEAF = 1024   # the largest leaf the kernel takes
 PANEL = 32        # panel width of the kernel and of the plain version
 
 
@@ -53,13 +55,23 @@ def _leaf_size(A) -> int:
     n = A.shape[0]
     if n > MAX_LEAF:
         raise ValueError(
-            f"chol_leaf: n = {n} > {MAX_LEAF}, the most one block's shared "
-            "memory stages; larger blocks go through ops.syrk._leaf_chol_")
+            f"chol_leaf: n = {n} > {MAX_LEAF}, the largest leaf the kernel "
+            "takes; larger blocks go through ops.syrk._leaf_chol_")
     if n > 1 and (A.stride(1) != 1 or A.stride(0) < n):
         raise ValueError(
             "chol_leaf: the kernel updates rows of unit stride in place, got "
             f"strides {A.stride()}")
     return n
+
+
+def chol_leaf_grid(n: int) -> int:
+    """Blocks of the kernel's cooperative launch for an n-leaf on the
+    current CUDA device: one on each SM, capped by the most tiles one panel
+    step offers."""
+    grid = _build.library().stpy_chol_leaf_grid(n)
+    if grid < 0:
+        _build.check(-grid, "chol_leaf_grid")
+    return grid
 
 
 def chol_leaf_(A):

@@ -4,7 +4,8 @@ Port of stpy_tpu/ops/pallas_gram_matvec.py (`gram_matvec`, `gram_matmat`,
 `make_lazy_matvec`, `make_lazy_matmat`), shape "k". The 1/γ scaling (scalar
 or ARD) happens here, outside the kernels, as in the JAX package. For CUDA
 tensors `gram_matvec_scaled` launches csrc/gram_matvec.cu and
-`gram_matmat_scaled` launches csrc/gram_matmat.cu (f32 only); for CPU tensors
+`gram_matmat_scaled` launches csrc/gram_matmat.cu (f32 only; the product
+with V on the TF32 tensor cores in three passes); for CPU tensors
 they run `gram_matvec_plain` / `gram_matmat_plain`, the same function in
 PyTorch (any float dtype), which materialises K one row chunk at a time.
 
@@ -26,6 +27,8 @@ _DERIV = ("the derivative shapes of the matrix-free Gram products belong to "
           "the matrix-free hyperparameter fit, ROADMAP Queue 1 item 5")
 # rows of K that the plain versions materialise at a time
 _PLAIN_CHUNK = 4096
+# csrc/gram_matmat.cu's tile of V: 128 columns (a slab) by 32 rows of y
+MATMAT_SLAB, MATMAT_TILE_Y = 128, 32
 
 
 def _check_shape(shape: str) -> None:
@@ -89,7 +92,17 @@ gram_matvec_scaled.launches = 0
 
 def gram_matmat_scaled(xs, ys, V, kappa, family="se", nu=1.5):
     """K(xs, ys)·V, (n, r), for coordinates already scaled by 1/γ. CUDA: the
-    hand kernel; CPU: `gram_matmat_plain`."""
+    hand kernel, any d, the product with V on the TF32 tensor cores in three
+    passes (Kh·Vh + Kh·Vl + Kl·Vh); it allocates V's split, two buffers of
+    about m·r floats. Its accuracy, as max |Δ| / Σⱼ|Kᵢⱼ||Vⱼc|: against the
+    same function in float64 on the same f32 inputs, the f32 bar
+    2·√m·eps32 from about m = 128 y points (coordinates of the lazy
+    tiers' scale); below, the f32 entries' own rounding (a few ulps of
+    |x|² + |y|² in the squared distance, in any f32 kernel of these
+    entries) can exceed it. Against the float64 product of the kernel's
+    own f32 entries, the product with V errs by at most max(8, 2·√m)·eps32
+    at any m (3·2⁻²² a term from the TF32 split, plus the tensor cores'
+    truncating f32 sums). CPU: `gram_matmat_plain`."""
     code = shape_code(family, nu)
     if not xs.is_cuda:
         return gram_matmat_plain(xs, ys, V, kappa, family, nu)
@@ -101,13 +114,20 @@ def gram_matmat_scaled(xs, ys, V, kappa, family="se", nu=1.5):
     xs, ys, V = xs.contiguous(), ys.contiguous(), V.contiguous()
     out = torch.empty((n, r), dtype=torch.float32, device=xs.device)
     if n == 0 or m == 0 or r == 0:
-        return out
+        return out.zero_()
+    # V's TF32 (hi, lo) split, transposed into the kernel's tile order, and
+    # y's tiles, feature-major, with their squared norms
+    tiles = -(-m // MATMAT_TILE_Y)
+    split = -(-r // MATMAT_SLAB) * tiles * MATMAT_SLAB * MATMAT_TILE_Y
+    vth, vtl = torch.empty((2, split), dtype=torch.float32, device=xs.device)
+    yt = torch.empty(tiles * MATMAT_TILE_Y * (d + 1), dtype=torch.float32,
+                     device=xs.device)
     lib = _build.library()
     with torch.cuda.device(xs.device):
         err = lib.stpy_gram_matmat(
             xs.data_ptr(), ys.data_ptr(), V.data_ptr(), out.data_ptr(),
-            n, m, d, r, float(kappa), code,
-            torch.cuda.current_stream().cuda_stream,
+            vth.data_ptr(), vtl.data_ptr(), yt.data_ptr(), n, m, d, r,
+            float(kappa), code, torch.cuda.current_stream().cuda_stream,
         )
     _build.check(err, "gram_matmat")
     gram_matmat_scaled.launches += 1

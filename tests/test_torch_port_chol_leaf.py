@@ -42,10 +42,11 @@ def rel_to_factor(L, L64):
     return np.max(np.abs(np.asarray(L, np.float64) - L64)) / np.max(np.abs(L64))
 
 
-@pytest.mark.parametrize("n", [256, 200])
+@pytest.mark.parametrize("n", [256, 200, 33, 1])
 def test_chol_leaf_matches_jax_and_float64(n):
     """n = 256: two of the JAX kernel's 128-column panels, eight of the
-    port's 32-column ones; n = 200: JAX pads to 256, the port masks."""
+    port's 32-column ones; n = 200: JAX pads to 256, the port masks; n = 33:
+    one full panel and a one-column one; n = 1: less than one panel."""
     K = se_gram(n)
     L64 = np.linalg.cholesky(K.astype(np.float64))
     L = chol_leaf(torch.as_tensor(K))

@@ -24,6 +24,7 @@ import jax.numpy as jnp
 
 from stpy_tpu.ops import pallas_gram_matvec as jax_mv
 from stpy_tpu_torch.ops import kernel_wrappers, launch_counts
+from stpy_tpu_torch.ops.gram import gram_plain
 from stpy_tpu_torch.ops.gram_matvec import (
     gram_matmat,
     gram_matmat_scaled,
@@ -150,6 +151,91 @@ def test_plain_versions_chunk_rows_without_changing_the_product():
                           rtol=0, atol=1e-12)
     assert torch.allclose(gram_matvec_scaled(xs, ys, Vt[:, 0], 1.0),
                           dense @ Vt[:, 0], rtol=0, atol=1e-12)
+
+
+def tf32_rna(a):
+    """float32 → TF32 (10 mantissa bits), round to nearest with ties away
+    from zero, as `cvt.rna.tf32.f32`: the low 13 bits rounded off."""
+    bits = np.ascontiguousarray(a, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+@pytest.mark.parametrize("n,m,d,r", [(300, 517, 3, 77), (2048, 4096, 8, 128)],
+                         ids=["ragged", "2048x4096"])
+@pytest.mark.parametrize("family,nu,gamma", [("se", 1.5, 0.5),
+                                             ("matern", 1.5, 0.8)],
+                         ids=["se", "matern32"])
+def test_three_tf32_passes_hold_the_card_kernels_f32_bar(family, nu, gamma, n,
+                                                         m, d, r):
+    """csrc/gram_matmat.cu's arithmetic, emulated: the f32 Gram entries and
+    V split into TF32 hi + lo, the product Kh·Vh + Kh·Vl + Kl·Vh summed in
+    f32. Held, as chip_smoke.py holds the kernel, to 2·√m·eps32 of
+    Σⱼ|Kᵢⱼ||Vⱼc| against the product in float64 on the same f32 inputs. One
+    pass, Kh·Vh, misses that bar: the record of why the kernel makes three."""
+    rng = np.random.default_rng(11)
+    xs = (rng.uniform(-1, 1, (n, d)) / gamma).astype(np.float32)
+    ys = (rng.uniform(-1, 1, (m, d)) / gamma).astype(np.float32)
+    V = rng.standard_normal((m, r)).astype(np.float32)
+    K = gram_plain(torch.as_tensor(xs), torch.as_tensor(ys), 1.0, family,
+                   nu).numpy()
+    Kh, Vh = tf32_rna(K), tf32_rna(V)
+    Kl, Vl = tf32_rna(K - Kh), tf32_rna(V - Vh)
+    f32 = [torch.as_tensor(a) for a in (Kh, Kl, Vh, Vl)]
+    three = (f32[0] @ f32[2] + f32[0] @ f32[3] + f32[1] @ f32[2]).double()
+    one = (f32[0] @ f32[2]).double()
+    V64 = torch.as_tensor(V, dtype=torch.float64)
+    both = gram_matmat_scaled(torch.as_tensor(xs, dtype=torch.float64),
+                              torch.as_tensor(ys, dtype=torch.float64),
+                              torch.cat([V64, V64.abs()], dim=1), 1.0, family,
+                              nu)
+    ref, scale = both[:, :r], both[:, r:]
+    bar = 2.0 * np.sqrt(m) * 2.0 ** -23
+    assert float(((three - ref).abs() / scale).max()) <= bar
+    assert float(((one - ref).abs() / scale).max()) > bar
+
+
+@pytest.mark.parametrize("m", [1, 3, 16])
+@pytest.mark.parametrize("family,nu,gamma", [("se", 1.5, 0.5),
+                                             ("matern", 1.5, 0.8)],
+                         ids=["se", "matern32"])
+def test_three_tf32_passes_hold_the_product_bar_at_few_points(family, nu,
+                                                              gamma, m):
+    """At a handful of y points (an IterativeGP on a few training points
+    sends m = n) the f32 entries' own rounding can exceed 2·√m·eps32, so
+    there the kernel's product is held, as chip_smoke.py holds it, against
+    the float64 product of the same f32 entries: emulated, the three TF32
+    passes err by at most 8·eps32 of Σⱼ|Kᵢⱼ||Vⱼc| (3·2⁻²² a term)."""
+    rng = np.random.default_rng(12)
+    xs = (rng.uniform(-1, 1, (64, 8)) / gamma).astype(np.float32)
+    ys = (rng.uniform(-1, 1, (m, 8)) / gamma).astype(np.float32)
+    V = rng.standard_normal((m, 7)).astype(np.float32)
+    K = gram_plain(torch.as_tensor(xs), torch.as_tensor(ys), 1.0, family,
+                   nu).numpy()
+    Kh, Vh = tf32_rna(K), tf32_rna(V)
+    Kl, Vl = tf32_rna(K - Kh), tf32_rna(V - Vh)
+    f32 = [torch.as_tensor(a) for a in (Kh, Kl, Vh, Vl)]
+    three = (f32[0] @ f32[2] + f32[0] @ f32[3] + f32[1] @ f32[2]).double()
+    K64, V64 = (torch.as_tensor(a, dtype=torch.float64) for a in (K, V))
+    ref, scale = K64 @ V64, K64 @ V64.abs()
+    assert float(((three - ref).abs() / scale).max()) <= 8 * 2.0 ** -23
+
+
+@pytest.mark.parametrize("family,nu", [("se", 1.0), ("matern", 1.5)])
+def test_gram_matmat_matches_jax_past_the_features_the_kernel_stages(family,
+                                                                     nu):
+    """d = 400: more features than csrc/gram_matmat.cu stages in shared
+    memory (384; it reads the rest from global memory). The contract takes
+    any d."""
+    rng = np.random.default_rng(13)
+    x, y = rng.uniform(-1, 1, (37, 400)), rng.uniform(-1, 1, (53, 400))
+    V = rng.standard_normal((53, 5))
+    kw = dict(family=family, gamma=9.0, kappa=0.8, nu=nu)
+    want = jax_mv.gram_matmat(jnp.asarray(x), jnp.asarray(y), jnp.asarray(V),
+                              **kw)
+    got = gram_matmat(torch.as_tensor(x), torch.as_tensor(y),
+                      torch.as_tensor(V), **kw)
+    assert got.shape == (37, 5)
+    assert rel_err(got.numpy(), want) <= RTOL
 
 
 class _FakeCuda(torch.Tensor):
