@@ -17,8 +17,8 @@ a dense float64 posterior (single and double precision), and at n = 65536
 rank-2048 preconditioner held to its float64 residual; then (phase 11) the
 fast blocked Cholesky (linalg.chol_dense(fast=True) on the chol_leaf and
 syrk_lower kernels) in benchmarks/exp_fastchol.py's three variants at
-n = 16384 against the same float64 posterior, and a diagnosis of its
-variance (the factor rebuilt with one piece swapped at a time); last
+n = 16384 against the same float64 posterior, and the factor rebuilt
+from its pieces, held bit for bit to it; last
 (phase 12) the df-entry stage probe (stpy_tpu_torch/probes/
 exp_r3_df_entry.py, the port of
 benchmarks/exp_r3_batch_{p,t,u,x}.py) at full size, every stage of the
@@ -93,6 +93,9 @@ RAGGED = (300, 517, 3)           # n, m, d: every tile edge is ragged
 # the coordinates scaled by sqrt(D / d) to d = 8's spread of distances
 WIDE = (300, 517, 512)
 QFORM_RAGGED = (300, 517, 211)   # c, n, t: no edge is a multiple of a tile
+# a row strip of the bench system, qform_refined_strip's form (c < n): first
+# row and rows c, both off the 128-row tile
+QFORM_STRIP = (5000, 3001)
 FAMILIES = (("se", 1.5), ("matern", 1.5))
 
 # Tolerances of the kernel-vs-plain checks:
@@ -166,6 +169,13 @@ def matvec_rtol(m):
 # the lazy tiers' bars.
 FEW_M = (1, 2, 3, 5, 8, 16, 33, 100)
 FEW_N, FEW_T = 5, 3
+# gram_matvec on the fit's operator K(x, x) at n = m points too few for one
+# block per SM, where the kernel splits the points into ranges (and at 1, a
+# single range): held at matvec_rtol(m), bitwise over two launches
+MATVEC_FEW = (1, 5, 100, 1000)
+# K(x, x)·e_i at row i is exactly kappa (sq is exactly 0 on the diagonal);
+# kappa not a power of two, so a lost bit shows
+DIAG_KAPPA = 1.3
 
 
 def matmat_product_rtol(m):
@@ -253,9 +263,14 @@ REPLACES = {
                        "benchmarks/exp_r3_batch_x.py:48"),
 }
 # the device kernels phase 10 counts under a name, where not `<name>_kernel`:
-# gram_matmat's call runs its two pre-passes too
+# gram_matmat's, gram_matvec's and qform_df's calls run their pre-passes
+# and, where they split the sums, their reductions too
 PROFILE_KERNELS = {"gram_matmat": ("gram_matmat_kernel", "split_v_kernel",
                                    "pad_y_kernel"),
+                   "gram_matvec": ("gram_matvec_kernel", "pad_points_kernel",
+                                   "matvec_reduce_kernel"),
+                   "qform_df": ("qform_df_kernel", "pack_a_kernel",
+                                "pack_w_kernel", "qform_reduce_kernel"),
                    "geqrf": ("geqrf",), "orgqr": ("orgqr",)}
 # H100 SXM data-sheet peaks, dense: HBM3 bytes/s, f32 outside the tensor
 # cores, FP64 outside them, FP64 and TF32 on the tensor cores (flop/s)
@@ -543,8 +558,9 @@ def qform_error(Th, Tl, W0k, W0a, Bh, Bl):
 
 def qform_checks(dev, x, xt):
     """Phase 2b: qform_df against its plain version on a ragged strip with
-    random operands and at the bench shape c = n = t = 16384 on the real SE
-    system (df train Gram, df cross Gram, W0 from the f32 Cholesky solve).
+    random operands, at the bench shape c = n = t = 16384 on the real SE
+    system (df train Gram, df cross Gram, W0 from the f32 Cholesky solve)
+    and on a row strip of that system (QFORM_STRIP).
     Returns the max abs error and (kernel ms, plain ms, f64 DGEMM ms of the
     same (c, n)·(n, t) product)."""
     rng = np.random.default_rng(2)
@@ -581,6 +597,13 @@ def qform_checks(dev, x, xt):
           f"max err / scale {rel!r}")
     assert rel <= QFORM_RTOL, ("qform_df", "bench", rel)
     err = max(err, e)
+    r0, c = QFORM_STRIP
+    rows = slice(r0, r0 + c)
+    e, rel = qform_error(Th[rows], Tl[rows], W0, W0[rows], Bh[rows], Bl[rows])
+    print(f"  qform_df strip  rows {r0}..{r0 + c - 1} of the SE system, c={c} "
+          f"n=t={N}: max abs err {e!r}, max err / scale {rel!r}")
+    assert rel <= QFORM_RTOL, ("qform_df", "strip", rel)
+    err = max(err, e)
     torch.cuda.empty_cache()
     k_ms, p_ms = timed_pair(
         lambda: qform_refined_strip(Th, Tl, W0, W0, Bh, Bl, S),
@@ -606,21 +629,42 @@ def matvec_error(kernel_fn, xs, ys, V, fam, nu):
     return float(diff.max()), float((diff / scale).max())
 
 
+def diagonal_rows(n):
+    return sorted({0, n // 2, n - 1})
+
+
+def matvec_diagonal_check(xs, fam, nu):
+    """gram_matvec_scaled(xs, xs, e_i)[i] == DIAG_KAPPA bit for bit at the
+    first, a middle and the last row: the diagonal term is exact."""
+    n = xs.shape[0]
+    kappa = torch.tensor(DIAG_KAPPA, dtype=torch.float32)
+    for i in diagonal_rows(n):
+        e = torch.zeros(n, dtype=torch.float32, device=xs.device)
+        e[i] = 1.0
+        got = gram_matvec_scaled(xs, xs, e, DIAG_KAPPA, fam, nu)[i].cpu()
+        assert torch.equal(got, kappa), ("gram_matvec diagonal", n, fam, i,
+                                         float(got))
+
+
 def matvec_checks(dev):
     """Phase 2c: gram_matvec and gram_matmat against their plain versions
     (error over Σ_j |K_ij||v_j|, bar `matvec_rtol`), bitwise repeatable, for
     each atom of the lazy tiers' kernel (SE γ = 0.5, Matérn-3/2 γ = 0.8): a
     ragged shape (r = 77 and 200), the bench shape n = m = 16384 and the
     65k lazy tier's shape, r = 128, on the fit's own operator K(x, x), and
-    the ragged shape at d = 512 (WIDE, r = 77).
-    Returns name -> max abs error; the SE timings at 16k and 65k (kernel,
-    plain f32); cuBLAS SGEMM of the materialised 16k Gram by a 128-column
-    block (not the same function)."""
+    the ragged shape at d = 512 (WIDE, r = 77); gram_matvec also on
+    K(x, x) at the few points of MATVEC_FEW. On every K(x, x), gram_matvec's
+    diagonal term is exactly κ (`matvec_diagonal_check`).
+    Returns name -> max abs error; the timings at 16k and 65k (kernel,
+    plain f32; SE, and gram_matvec's Matérn-3/2 kernel alone); cuBLAS SGEMM
+    of the materialised 16k Gram by a 128-column block (not the same
+    function)."""
     rng = np.random.default_rng(3)
     err = {"gram_matvec": 0.0, "gram_matmat": 0.0}
     times = {}
     sgemm_ms = None
-    for label, (n, m, d) in (("ragged", RAGGED), ("16k", (N, N, D)),
+    few = tuple((f"few{n}", (n, n, D)) for n in MATVEC_FEW)
+    for label, (n, m, d) in (("ragged", RAGGED), *few, ("16k", (N, N, D)),
                              ("65k", (LAZY_BIG_N, LAZY_BIG_N, D)),
                              ("wide", WIDE)):
         spread = math.sqrt(D / d) if label == "wide" else 1.0
@@ -629,8 +673,8 @@ def matvec_checks(dev):
              if label in ("ragged", "wide") else x)
         v = torch.as_tensor(rng.standard_normal(m), dtype=torch.float32,
                             device=dev)
-        rs = {"ragged": RAGGED_R, "wide": RAGGED_R[:1]}.get(label,
-                                                             (MATMAT_R,))
+        rs = {"ragged": RAGGED_R, "wide": RAGGED_R[:1]}.get(
+            label, () if label.startswith("few") else (MATMAT_R,))
         Vs = [torch.as_tensor(rng.standard_normal((m, r)), dtype=torch.float32,
                               device=dev) for r in rs]
         for fam, nu, gamma in LAZY_ATOMS:
@@ -638,11 +682,21 @@ def matvec_checks(dev):
             ys = xs if y is x else torch.as_tensor(
                 y / gamma, dtype=torch.float32, device=dev)
             e, rel = matvec_error(gram_matvec_scaled, xs, ys, v, fam, nu)
+            if ys is xs:
+                matvec_diagonal_check(xs, fam, nu)
             print(f"  gram_matvec {label:6s} {fam:6s} {n}x{m} d={d}: max abs "
                   f"err {e!r}, max err / sum|K||v| {rel!r} (bar "
-                  f"{matvec_rtol(m)!r}), repeatable")
+                  f"{matvec_rtol(m)!r}), repeatable"
+                  + (f"; K(x, x)·e_i = {DIAG_KAPPA} exactly at rows "
+                     f"{diagonal_rows(n)}" if ys is xs else ""))
             assert rel <= matvec_rtol(m), ("gram_matvec", label, fam, rel)
             err["gram_matvec"] = max(err["gram_matvec"], e)
+            if label in ("16k", "65k") and fam != "se":
+                times[label]["gram_matvec_matern32"] = cuda_ms(
+                    lambda: gram_matvec_scaled(xs, ys, v, 1.0, fam, nu), 5)
+                print(f"  gram_matvec {label} Matérn-3/2: kernel "
+                      f"{times[label]['gram_matvec_matern32']!r} ms, bound "
+                      f"{matvec_bound(n, m, d, fam)[0]!r} ms")
             for V in Vs:
                 e, rel = matvec_error(gram_matmat_scaled, xs, ys, V, fam, nu)
                 print(f"  gram_matmat {label:6s} {fam:6s} {n}x{m} d={d} "
@@ -651,7 +705,7 @@ def matvec_checks(dev):
                       "repeatable")
                 assert rel <= matvec_rtol(m), ("gram_matmat", label, fam, rel)
                 err["gram_matmat"] = max(err["gram_matmat"], e)
-            if label in ("ragged", "wide") or fam != "se":
+            if label not in ("16k", "65k") or fam != "se":
                 continue
             V = Vs[0]
             times[label] = {
@@ -924,29 +978,20 @@ def factor_errors(kernel, x, y, xt, factor, mu64, var64):
     return out
 
 
-def rebuilt_fast_factor(A, panels="inverse", leaves="kernel", nb=FAST_NB):
+def inverse_panel(W, D):
+    """W ← W·D⁻ᵀ as the port forms a panel (ops/syrk.py, in
+    `chol_blocked_syrk` and in `_leaf_chol_`'s split of a 2048 block):
+    W·(L⁻¹)ᵀ with L⁻¹ from a triangular solve against I."""
+    eye = torch.eye(D.shape[0], dtype=D.dtype, device=D.device)
+    W.copy_(W @ torch.linalg.solve_triangular(D, eye, upper=False).T)
+
+
+def rebuilt_fast_factor(A, nb=FAST_NB, leaf=chol_leaf_, panel=inverse_panel):
     """ops/syrk.chol_blocked_syrk's factor of A (n a multiple of nb, as at
-    n = 16384) rebuilt from the port's pieces, for phase 11's diagnosis of
-    its variance. panels="inverse" forms each panel as the port does,
-    W = B·(L⁻¹)ᵀ with L⁻¹ from a triangular solve against I (ops/syrk.py,
-    in `chol_blocked_syrk` and in `_leaf_chol_`'s split of a 2048 block);
-    "solve" forms W by torch.linalg.solve_triangular on B itself.
-    leaves="kernel" factors each 1024 leaf with chol_leaf_; "cholesky_ex"
-    with torch.linalg.cholesky_ex."""
-    def leaf(T):
-        if leaves == "kernel":
-            chol_leaf_(T)
-        else:
-            T.copy_(torch.linalg.cholesky_ex(T)[0])
-
-    def panel(W, D):   # W ← W·D⁻ᵀ
-        if panels == "solve":
-            W.copy_(torch.linalg.solve_triangular(D.T, W, upper=True,
-                                                  left=False))
-        else:
-            eye = torch.eye(D.shape[0], dtype=D.dtype, device=D.device)
-            W.copy_(W @ torch.linalg.solve_triangular(D, eye, upper=False).T)
-
+    n = 16384) rebuilt from the port's pieces: each ≤ 1024 leaf factored in
+    place by `leaf`, each panel W ← W·D⁻ᵀ by `panel`, the trailing blocks
+    updated by syrk_lower. Phase 11 holds it, as built, bitwise to
+    chol_dense(fast=True); tools/fast_chol_variance.py swaps the pieces."""
     def block(T):      # `_leaf_chol_`
         if T.shape[0] <= MAX_LEAF:
             return leaf(T)
@@ -1194,14 +1239,13 @@ def fast_chol_phase(dev, kernel, mu64, var64):
     backward error printed (the fast one held to FAST_BACKWARD_RATIO times
     the default's), its launches counted on its first run (16 chol_leaf and
     7 syrk_lower for the fast factor at n = 16384, none for the default),
-    its warm wall the median of 3. Then the diagnosis of the fast factor's
-    variance on A without jitter: `rebuilt_fast_factor` as built (held
-    bitwise to chol_dense(fast=True)), with its panels by triangular solves
-    and with its leaves by cholesky_ex, each one's posterior errors and
-    backward error printed (tools/fast_chol_variance.py sweeps the block
+    its warm wall the median of 3. Then the fast factor on A without
+    jitter: `rebuilt_fast_factor` as built, held bitwise to
+    chol_dense(fast=True), its posterior errors and backward error printed
+    (tools/fast_chol_variance.py swaps its pieces and sweeps the block
     size). Then the two factors alone on A by CUDA events, and the device
     memory each adds at its peak. Returns (per variant results, factor ms,
-    peak GiB, the diagnosis)."""
+    peak GiB, the unjittered factor's errors)."""
     x, y, xt = bench_data(dev)
     try:
         linalg.chol_dense(torch.eye(8, dtype=torch.float64, device=dev),
@@ -1245,29 +1289,20 @@ def fast_chol_phase(dev, kernel, mu64, var64):
             assert kernels == (0, 0) and counts["gram"] > 0, counts
     assert fast["fast"]["backward"] <= (FAST_BACKWARD_RATIO
                                         * fast["default"]["backward"]), fast
-    # What puts the fast factor's variance max above the default's at an
-    # equal backward error: the fast factor rebuilt from the port's pieces
-    # (bitwise chol_dense(fast=True)'s), then with one piece swapped, each
-    # on A without the jitter safe_cholesky adds.
+    # the fast factor rebuilt from the port's pieces, on A without the
+    # jitter safe_cholesky adds (the baseline of tools/fast_chol_variance.py)
     def as_built(A_):
         L = rebuilt_fast_factor(A_)
         assert torch.equal(L, linalg.chol_dense(A_, fast=True)), \
             "the rebuilt fast factor differs from chol_dense(fast=True)"
         return L
 
-    diagnosis = {}
-    variants = (
-        ("fast factor as built (bitwise chol_dense(fast=True))", as_built),
-        ("fast factor, panels by solve_triangular",
-         lambda A_: rebuilt_fast_factor(A_, panels="solve")),
-        ("fast factor, cholesky_ex leaves",
-         lambda A_: rebuilt_fast_factor(A_, leaves="cholesky_ex")))
-    for label, factor in variants:
-        diagnosis[label] = dg = factor_errors(kernel, x, y, xt, factor,
-                                              mu64, var64)
-        print(f"  diagnosis, no jitter, {label}: mean rel err "
-              f"{dg['mean']!r}, var rel err max {dg['var_max']!r} median "
-              f"{dg['var_median']!r}; backward error {dg['backward']!r}")
+    unjittered = factor_errors(kernel, x, y, xt, as_built, mu64, var64)
+    print(f"  no jitter, the fast factor rebuilt from its pieces (bitwise "
+          f"chol_dense(fast=True)): mean rel err {unjittered['mean']!r}, var "
+          f"rel err max {unjittered['var_max']!r} median "
+          f"{unjittered['var_median']!r}; backward error "
+          f"{unjittered['backward']!r}")
     A = se_system(x)
     factor_ms = {"fast": cuda_ms(lambda: linalg.chol_dense(A, fast=True), 3),
                  "cholesky_ex": cuda_ms(lambda: torch.linalg.cholesky_ex(A), 3)}
@@ -1286,7 +1321,7 @@ def fast_chol_phase(dev, kernel, mu64, var64):
           f" ms; device memory it adds at its peak beyond A "
           f"({A.numel() * 4 / 2**30!r} GiB): fast {peaks['fast']!r} GiB, "
           f"cholesky_ex {peaks['cholesky_ex']!r} GiB")
-    return fast, factor_ms, peaks, diagnosis
+    return fast, factor_ms, peaks, unjittered
 
 
 def pair_error(got, want):
@@ -1420,6 +1455,8 @@ def main(argv=None) -> int:
     errs |= errs_mv
     errs["gram_matmat"] = max(errs["gram_matmat"],
                               matmat_few_points_checks(dev))
+    matvec_m32_ms = {label: t.pop("gram_matvec_matern32")
+                     for label, t in mv_times.items()}
     # the record carries the lazy tier's shape (65k, SE), the main path's
     ktimes |= mv_times["65k"]
     bounds |= {"gram_matvec": matvec_bound(LAZY_BIG_N, LAZY_BIG_N, D, "se"),
@@ -1462,18 +1499,26 @@ def main(argv=None) -> int:
     print("== phase 5: double tier at var_refine=1, SE and Matérn-3/2")
     m32 = KernelFunction(kernel_name="matern", gamma=GAMMA, nu=1.5, d=D,
                          device=dev)
-    refined, refined_gp, refined_counts = {}, {}, {}
+    refined, refined_gp, refined_counts, refined_peak = {}, {}, {}, {}
+    peak_so_far = 0
     for label, kernel, family in (("se", se, "se"), ("matern32", m32, "m32")):
         if label != "se":
             mu64, var64, _ = reference_f64(x, y, xt, family)
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated() / 2**30
+        peak_so_far = max(peak_so_far, torch.cuda.max_memory_allocated())
+        torch.cuda.reset_peak_memory_stats()
         gp, mu, sd, counts = run_tier(kernel, x, y, xt, precision="double",
                                       var_refine=1)
+        refined_peak[label] = torch.cuda.max_memory_allocated() / 2**30
         refined[label] = posterior_errors(mu, sd, mu64, var64)
         refined_gp[label], refined_counts[label] = gp, counts
         m, vmax, vmed = refined[label]
         print(f"  {label}: mean rel err {m!r} (bar 1e-6, ROADMAP bar 1e-7), "
               f"var rel err max {vmax!r} (ROADMAP bar 1e-6) median {vmed!r}, "
-              f"fit_status {gp.fit_status}, launches {counts}")
+              f"fit_status {gp.fit_status}, launches {counts}; peak device "
+              f"memory {refined_peak[label]!r} GiB ({held!r} GiB held "
+              f"before: the data and the float64 reference)")
         del gp
         assert m <= DOUBLE_MEAN_RTOL and vmax <= REFINED_VAR_MAX_RTOL, refined[label]
         assert all(counts[k] > 0 for k in ("qform_df", "gram_df", "gemv_df")), \
@@ -1516,6 +1561,10 @@ def main(argv=None) -> int:
         print(f"  {name}: kernel {k_ms!r} ms, plain {p_ms!r} ms, bound "
               f"{bounds[name][0]!r} ms ({bounds[name][1]}) at "
               f"{shapes.get(name, 'the bench shape')}")
+    m32_bound = matvec_bound(LAZY_BIG_N, LAZY_BIG_N, D, "matern")[0]
+    print("  gram_matvec, Matérn-3/2 atom (γ = 0.8): kernel "
+          + ", ".join(f"{k} {v!r} ms" for k, v in matvec_m32_ms.items())
+          + f"; bound at 65k {m32_bound!r} ms")
     print(f"  gram_matmat: its bound with the product on the f32 pipes "
           f"(matvec_bound) {matmat_f32_bound[0]!r} ms")
     print(f"  qform_df: cuBLAS f64 DGEMM of the same (c, n)·(n, t) product "
@@ -1527,7 +1576,8 @@ def main(argv=None) -> int:
           f"_leaf_chol_ (two leaves, the split's inverse and products) "
           f"{leaf2048[0]!r} ms, cholesky_ex {leaf2048[1]!r} ms")
     print(f"  peak device memory so far (float64 references included) "
-          f"{torch.cuda.max_memory_allocated() / 2**30!r} GiB")
+          f"{max(peak_so_far, torch.cuda.max_memory_allocated()) / 2**30!r}"
+          " GiB")
     del gp1, gp2, gp3, refined_gp, x, y, xt
     torch.cuda.empty_cache()
 
@@ -1674,7 +1724,7 @@ def main(argv=None) -> int:
     print(f"== phase 11: the fast factor (chol_dense(fast=True)) in "
           f"benchmarks/exp_fastchol.py's three variants, n = ntest = {N}, "
           f"d = {D}, SE gamma = {GAMMA}, s = {S}, against float64")
-    fast, factor_ms, peaks, diagnosis = fast_chol_phase(dev, se, *se_ref)
+    fast, factor_ms, peaks, unjittered = fast_chol_phase(dev, se, *se_ref)
     launches |= {"syrk_lower": ("fast_chol",
                                 fast["fast"]["launches"]["syrk_lower"]),
                  "chol_leaf": ("fast_chol",
@@ -1702,6 +1752,8 @@ def main(argv=None) -> int:
          "library_ms": library.get(name)}
         for name in REPLACES
     ], "qform_df_dgemm_ms": qtimes[2], "gram_matmat_sgemm_16k_ms": sgemm_ms,
+        "gram_matvec_matern32_ms": matvec_m32_ms,
+        "var_refine_peak_gib": refined_peak,
         "gram_matmat_f32_pipe_bound_ms": matmat_f32_bound[0],
         "chol_leaf_grid": leaf_grids,
         "leaf_chol_2048_ms": leaf2048[0],
@@ -1719,7 +1771,7 @@ def main(argv=None) -> int:
         "lazy_65k_defaults_unsegmented_fit_status": unseg_status,
         "lazy_32k_precond_basis": basis,
         "fast_chol": {**fast, "factor_ms": factor_ms,
-                      "factor_peak_gib": peaks, "diagnosis": diagnosis},
+                      "factor_peak_gib": peaks, "unjittered": unjittered},
         "df_entry_probe": probe}
     print(json.dumps(record))
     print(card_line())

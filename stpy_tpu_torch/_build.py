@@ -64,14 +64,20 @@ _SIGNATURES = {
     "stpy_gemv_df": (_P, _P, _P, _P, _P, _P, _I, _I, _P),
     # x, y, out, n, m, d, kappa, inv_g2, stream
     "stpy_gram_l1": (_P, _P, _P, _I, _I, _I, ctypes.c_float, ctypes.c_float, _P),
-    # th, tl, w0k, w0a, bh, bl, s2, part, c, n, t, stream
-    "stpy_qform_df": (_P, _P, _P, _P, _P, _P, ctypes.c_double, _P, _I, _I, _I, _P),
+    # th, tl, w0k, w0a, bh, bl, s2, part, scratch, c, n, t, stream
+    "stpy_qform_df": (_P, _P, _P, _P, _P, _P, ctypes.c_double, _P, _P, _I, _I,
+                      _I, _P),
+    # c, n, t -> doubles of stpy_qform_df's scratch
+    "stpy_qform_df_scratch": (_I, _I, _I),
     # part, row tiles, t, qh, ql, stream
     "stpy_qform_df_reduce": (_P, _I, _I, _P, _P, _P),
     # c -> rows of the partial-sum buffer of stpy_qform_df
     "stpy_qform_df_row_tiles": (_I,),
-    # x, y, v, out, n, m, d, kappa, shape, stream
-    "stpy_gram_matvec": (_P, _P, _P, _P, _I, _I, _I, ctypes.c_float, _I, _P),
+    # x, y, v, out, scratch, n, m, d, kappa, shape, stream
+    "stpy_gram_matvec": (_P, _P, _P, _P, _P, _I, _I, _I, ctypes.c_float, _I,
+                         _P),
+    # n, m, d -> floats of stpy_gram_matvec's scratch
+    "stpy_gram_matvec_scratch": (_I, _I, _I),
     # x, y, V, out, vth, vtl, yt, n, m, d, r, kappa, shape, stream
     "stpy_gram_matmat": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                          ctypes.c_float, _I, _P),
@@ -82,6 +88,8 @@ _SIGNATURES = {
     # n -> blocks of the leaf's cooperative launch
     "stpy_chol_leaf_grid": (_I,),
 }
+# the entry points that return a count of scratch elements, not an error code
+_COUNTS = ("stpy_gram_matvec_scratch", "stpy_qform_df_scratch")
 
 _lock = threading.Lock()
 _lib = None
@@ -170,7 +178,8 @@ def library() -> ctypes.CDLL:
             for name, argtypes in _SIGNATURES.items():
                 fn = getattr(lib, name)
                 fn.argtypes = list(argtypes)
-                fn.restype = ctypes.c_int
+                fn.restype = (ctypes.c_longlong if name in _COUNTS
+                              else ctypes.c_int)
             lib.stpy_cuda_error_string.argtypes = [ctypes.c_int]
             lib.stpy_cuda_error_string.restype = ctypes.c_char_p
             _lib = lib

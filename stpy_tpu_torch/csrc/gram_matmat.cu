@@ -60,6 +60,7 @@
 
 #include <stdint.h>
 
+#include "async_copy.cuh"
 #include "gram_shape.cuh"
 
 namespace {
@@ -76,54 +77,11 @@ constexpr int NT = 32 * (NCW + 4); // plus the producer warpgroup
 constexpr int TOTALS = 64 * 32 * NCW;   // the consumers' f32 totals (floats)
 constexpr int YSTAGE = 384;        // most features of a y tile staged in the ring
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
 // cvt.rna.tf32.f32's rounding (to nearest, ties away from zero, onto 10
 // mantissa bits) as two integer operations; it differs from the instruction
 // only in the payload of a NaN
 __device__ __forceinline__ uint32_t to_tf32(float v) {
   return (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred P1;\n"
-      "LAB_WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
-      "@P1 bra DONE;\n"
-      "bra LAB_WAIT;\n"
-      "DONE:\n"
-      "}\n" ::"r"(smem_u32(bar)),
-      "r"(parity)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar)) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-// one contiguous global -> shared copy, its bytes counted on `bar`
-__device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t bytes,
-                                          uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::"r"(
-          smem_u32(dst)),
-      "l"(src), "r"(bytes), "r"(smem_u32(bar))
-      : "memory");
 }
 
 // wgmma descriptor of a K-major B tile without swizzle: core matrices of
@@ -310,7 +268,7 @@ gram_matmat_kernel(const float* __restrict__ x, const float* __restrict__ yt,
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], NCW);
     }
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    mbar_init_fence();
   }
   __syncthreads();
 

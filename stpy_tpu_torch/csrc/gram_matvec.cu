@@ -6,114 +6,278 @@
 // already scaled by 1/gamma (scalar or per-dimension), as in
 // pallas_gram_matvec.gram_matvec.
 //
-// What bounds it on an H100: per (i, j) pair 2d operations for the squared
-// distance, the shape (an exp, and a sqrt for Matern) and 2 for the product
-// with v; the inputs are O((n + m) d), so the f32 pipes and the SFU bound it,
-// not memory (1.4 ms per atom at n = m = 65536, d = 8).
+// What bounds it on an H100: operations.  Per (i, j) pair d FMAs of the dot
+// product, the squared distance from the norms (an add, an FMA, a max), the
+// shape (SE: an FMUL and one MUFU.EX2; Matern adds a MUFU.SQRT and two or
+// three FP32 operations) and one FMA with v[j]; the inputs are O((n + m) d).
+// At n = m = 65536, d = 8 that is about 14 issue slots a pair on the FP32
+// pipes, which also issue the MUFUs.
 //
-// Design: one block owns 64 rows of x and walks every 64-column tile of y
-// (staged in shared memory with its slice of v) in ascending order.  Within
-// a tile the block computes the 64x64 Gram tile exactly as gram.cu does --
-// each of the 256 threads a 4x4 register sub-tile strided by 16 rows and 16
-// columns, features staged 32 at a time, norms and dot from one FMA chain
-// (gram_shape.cuh), so the diagonal term of K(x, x) v uses exactly kappa --
-// and folds it into v in registers: each thread keeps one running f32 sum
-// per row.  After the last tile the 16 threads that share a row reduce their
-// sums by shuffles in a fixed tree and one writes the row.  No atomics and a
-// fixed order everywhere, so a rerun gives the same bits: CG's stagnation
-// test and iteration count would otherwise change from run to run.  The
-// ragged edges of n, m and d are masked (the TPU kernel pads, and relies on
-// zero v entries to cancel the padded columns).
+// Design: everything but the pairs' own instructions is taken out of the
+// loop.
+//   * pad_points_kernel writes y once as rows of DP + 4 floats: the first DP
+//     features (DP = 8 or 16, zero past d), the point's squared norm by
+//     gram.cu's FMA chain over all d features, v[j], two zeros; past m the
+//     rows are zero (v = 0, so they add exactly nothing).
+//   * gram_matvec_kernel: each of a block's 256 threads keeps R rows of x
+//     (R = 8 at DP = 8, 4 at DP = 16), their first DP features and their norms
+//     in registers for the whole kernel.  The block streams its range of y
+//     tiles (128 points) through a ring of 4 shared-memory stages, each one
+//     bulk copy (cp.async.bulk) whose arrival is counted on an mbarrier; one
+//     __syncthreads a tile frees the stage for the next copy.  Every thread
+//     reads the same point at a time, so each read is a broadcast float4.
+//     Features past 16 are read from x and y in global memory (the cache
+//     serves them), so any d > 0 is taken.
+//   * The shape is shape_exp2 (gram_shape.cuh): the constant folded into a
+//     base-2 exponent on MUFU.EX2, the square root on MUFU.SQRT.
+//   * The norms and the dot come from one FMA chain in ascending features
+//     (zero features add nothing), so where x_i == y_j sq is exactly 0 and
+//     the diagonal term of K(x, x) v is exactly kappa v_i.
+// Each thread sums its rows over its range's points in ascending order, in
+// f32.  Where the rows alone give fewer blocks than the card holds, the
+// points are split into ranges (`plan`: the count that needs the fewest
+// tile-steps on the busiest SM, a function of n, m, d and the SM count) and
+// matvec_reduce_kernel adds the ranges' partial sums in order.  No
+// atomics and a fixed order everywhere, so a rerun gives the same bits: CG's
+// stall test and iteration count would otherwise change from run to run.
 #include <cuda_runtime.h>
 
+#include <stdint.h>
+
+#include "async_copy.cuh"
 #include "gram_shape.cuh"
 
 namespace {
 
-constexpr int TILE = 64;   // rows per block, columns per tile
-constexpr int KC = 32;     // features staged per pass
-constexpr int TPB = 16;    // threads per block along each axis
-constexpr int PER = TILE / TPB;
+constexpr int THREADS = 256;
+constexpr int TJ = 128;        // y points per tile
+constexpr int STAGES = 4;      // tiles in the ring
+constexpr int DMAX = 16;       // most features held in registers
+constexpr int BLOCKS_PER_SM = 2;
 
-template <int SHAPE>
-__global__ void __launch_bounds__(TPB * TPB)
+__host__ __device__ constexpr int rows_per_thread(int dp) { return dp <= 8 ? 8 : 4; }
+int head_features(int d) { return d <= 8 ? 8 : DMAX; }
+
+// y -> rows of dp + 4 floats: features 0..dp-1, |y_j|^2, v_j, 0, 0
+__global__ void __launch_bounds__(256)
+pad_points_kernel(const float* __restrict__ y, const float* __restrict__ v,
+                  float* __restrict__ yh, int m, int d, int dp, int padded) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= padded) return;
+  float* row = yh + (size_t)j * (dp + 4);
+  float ny = 0.0f;
+  for (int k = 0; k < d; ++k) {
+    const float b = j < m ? y[(size_t)j * d + k] : 0.0f;
+    ny = fmaf(b, b, ny);
+    if (k < dp) row[k] = b;
+  }
+  for (int k = d; k < dp; ++k) row[k] = 0.0f;
+  row[dp] = ny;
+  row[dp + 1] = j < m ? v[j] : 0.0f;
+  row[dp + 2] = row[dp + 3] = 0.0f;
+}
+
+template <int SHAPE, int DP, bool TAIL>
+__global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM)
 gram_matvec_kernel(const float* __restrict__ x, const float* __restrict__ y,
-                   const float* __restrict__ v, float* __restrict__ out,
-                   int n, int m, int d, float kappa) {
-  __shared__ float xs[TILE][KC + 1];
-  __shared__ float ys[TILE][KC + 1];
-  __shared__ float vs[TILE];
-  const int tx = threadIdx.x, ty = threadIdx.y, tid = ty * TPB + tx;
-  const int row0 = blockIdx.x * TILE;
+                   const float* __restrict__ yh, float* __restrict__ out,
+                   float* __restrict__ part, int n, int m, int d, int per, int tiles,
+                   float kappa) {
+  constexpr int R = rows_per_thread(DP);
+  constexpr int W = DP + 4;              // floats a point
+  constexpr int TILE = TJ * W;           // floats a tile
+  __shared__ __align__(128) float ring[STAGES][TILE];
+  __shared__ __align__(8) uint64_t full[STAGES];
+  const int tid = threadIdx.x;
+  const int t0 = blockIdx.y * per;
+  const int count = min(tiles, t0 + per) - t0;
 
-  float rowsum[PER] = {};
-  for (int col0 = 0; col0 < m; col0 += TILE) {
-    float acc[PER][PER] = {};
-    float nx[PER] = {}, ny[PER] = {};
-    if (tid < TILE) vs[tid] = (col0 + tid < m) ? v[col0 + tid] : 0.0f;
-    for (int k0 = 0; k0 < d; k0 += KC) {
-      for (int idx = tid; idx < TILE * KC; idx += TPB * TPB) {
-        const int r = idx / KC, k = idx % KC, kk = k0 + k;
-        xs[r][k] = (row0 + r < n && kk < d) ? x[(size_t)(row0 + r) * d + kk] : 0.0f;
-        ys[r][k] = (col0 + r < m && kk < d) ? y[(size_t)(col0 + r) * d + kk] : 0.0f;
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) mbar_init(&full[s], 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    for (int s = 0; s < STAGES && s < count; ++s) {
+      mbar_expect_tx(&full[s], TILE * sizeof(float));
+      bulk_copy(ring[s], yh + (size_t)(t0 + s) * TILE, TILE * sizeof(float), &full[s]);
+    }
+  }
+
+  // this thread's rows: row0 + tid + THREADS * r, their first DP features
+  // (0 past d and past n) and norms, by the chain pad_points_kernel runs
+  const int row0 = blockIdx.x * THREADS * R + tid;
+  float xr[R][DP], nx[R], acc[R];
+  const float* xrow[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int row = row0 + THREADS * r;
+    const bool ok = row < n;
+    xrow[r] = x + (size_t)(ok ? row : n - 1) * d;
+    float s = 0.0f;
+#pragma unroll
+    for (int k = 0; k < DP; ++k) {
+      xr[r][k] = ok && k < d ? xrow[r][k] : 0.0f;
+      s = fmaf(xr[r][k], xr[r][k], s);
+    }
+    if (TAIL) {
+      for (int k = DP; k < d; ++k) {
+        const float a = ok ? xrow[r][k] : 0.0f;
+        s = fmaf(a, a, s);
       }
-      __syncthreads();
-      const int kend = min(KC, d - k0);
-      for (int k = 0; k < kend; ++k) {
-        float a[PER], b[PER];
+    }
+    nx[r] = s;
+    acc[r] = 0.0f;
+  }
+
+  for (int it = 0; it < count; ++it) {
+    const int st = it % STAGES;
+    mbar_wait(&full[st], (it / STAGES) & 1);
+    const float* tile = ring[st];
+#pragma unroll 4
+    for (int jj = 0; jj < TJ; ++jj) {
+      const float4* p = reinterpret_cast<const float4*>(tile + jj * W);
+      float yk[DP];
 #pragma unroll
-        for (int i = 0; i < PER; ++i) a[i] = xs[ty + TPB * i][k];
+      for (int q = 0; q < DP / 4; ++q) {
+        const float4 b = p[q];
+        yk[4 * q] = b.x;
+        yk[4 * q + 1] = b.y;
+        yk[4 * q + 2] = b.z;
+        yk[4 * q + 3] = b.w;
+      }
+      const float4 nv = p[DP / 4];       // |y_j|^2, v_j
+      float dot[R];
 #pragma unroll
-        for (int j = 0; j < PER; ++j) b[j] = ys[tx + TPB * j][k];
+      for (int r = 0; r < R; ++r) dot[r] = 0.0f;
 #pragma unroll
-        for (int i = 0; i < PER; ++i) {
-          nx[i] = fmaf(a[i], a[i], nx[i]);
-          ny[i] = fmaf(b[i], b[i], ny[i]);
+      for (int k = 0; k < DP; ++k)
 #pragma unroll
-          for (int j = 0; j < PER; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+        for (int r = 0; r < R; ++r) dot[r] = fmaf(xr[r][k], yk[k], dot[r]);
+      if (TAIL) {
+        const float* yrow = y + (size_t)min((t0 + it) * TJ + jj, m - 1) * d;
+        for (int k = DP; k < d; ++k) {
+          const float b = __ldg(yrow + k);
+#pragma unroll
+          for (int r = 0; r < R; ++r) dot[r] = fmaf(__ldg(xrow[r] + k), b, dot[r]);
         }
       }
-      __syncthreads();
-    }
 #pragma unroll
-    for (int i = 0; i < PER; ++i) {
-      float part = 0.0f;
-#pragma unroll
-      for (int j = 0; j < PER; ++j) {
-        // masked columns carry v = 0, and their shape is finite (x, y = 0)
-        part = fmaf(shape_fn<SHAPE>(sq_from_chain(nx[i], ny[j], acc[i][j])),
-                    vs[tx + TPB * j], part);
-      }
-      rowsum[i] += part;
+      for (int r = 0; r < R; ++r)
+        acc[r] = fmaf(shape_exp2<SHAPE>(sq_from_chain(nx[r], nv.x, dot[r])), nv.y, acc[r]);
     }
-    __syncthreads();   // vs is rewritten by the next tile
+    __syncthreads();   // every thread is done with stage st
+    if (tid == 0 && it + STAGES < count) {
+      mbar_expect_tx(&full[st], TILE * sizeof(float));
+      bulk_copy(ring[st], yh + (size_t)(t0 + it + STAGES) * TILE, TILE * sizeof(float),
+                &full[st]);
+    }
   }
 
-  // the 16 threads of a row are the 16 lanes of one half-warp (tx = lane % 16)
 #pragma unroll
-  for (int i = 0; i < PER; ++i) {
-#pragma unroll
-    for (int off = TPB / 2; off > 0; off >>= 1)
-      rowsum[i] += __shfl_xor_sync(0xffffffffu, rowsum[i], off);
-    const int r = row0 + ty + TPB * i;
-    if (tx == 0 && r < n) out[r] = kappa * rowsum[i];
+  for (int r = 0; r < R; ++r) {
+    const int row = row0 + THREADS * r;
+    if (row >= n) continue;
+    if (gridDim.y == 1)
+      out[row] = kappa * acc[r];
+    else
+      part[(size_t)blockIdx.y * n + row] = acc[r];
   }
+}
+
+// out[i] = kappa * the sum of the ranges' partial sums, in order
+__global__ void __launch_bounds__(256)
+matvec_reduce_kernel(const float* __restrict__ part, int ranges, int n, float kappa,
+                     float* __restrict__ out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  float s = part[i];
+  for (int r = 1; r < ranges; ++r) s += part[(size_t)r * n + i];
+  out[i] = kappa * s;
+}
+
+// How a call is cut: DP features in registers, R rows a thread, the y tiles
+// and how many ranges of `per` tiles they are split into.  The count of
+// ranges is the one (the smallest, on a tie) whose busiest SM runs the
+// fewest tile-steps: waves of BLOCKS_PER_SM blocks an SM times tiles a block.
+struct Plan {
+  int dp, rows, tiles, per, ranges;
+  long long head_floats, part_floats;
+};
+
+int plan(int n, int m, int d, Plan* p) {
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  p->dp = head_features(d);
+  p->rows = THREADS * rows_per_thread(p->dp);
+  p->tiles = (m + TJ - 1) / TJ;
+  const long long row_blocks = (n + p->rows - 1) / p->rows;
+  const long long slots = (long long)BLOCKS_PER_SM * sms;
+  long long best = -1;
+  int ranges = 1;
+  for (int s = 1; s <= p->tiles && s <= slots; ++s) {
+    const long long per = (p->tiles + s - 1) / s;
+    const long long cost = (row_blocks * s + slots - 1) / slots * per;
+    if (best < 0 || cost < best) best = cost, ranges = s;
+  }
+  p->per = (p->tiles + ranges - 1) / ranges;
+  p->ranges = (p->tiles + p->per - 1) / p->per;
+  p->head_floats = (long long)p->tiles * TJ * (p->dp + 4);
+  p->part_floats = p->ranges > 1 ? (long long)p->ranges * n : 0;
+  return 0;
+}
+
+template <int SHAPE, int DP, bool TAIL>
+void launch(const Plan& p, const float* x, const float* y, const float* yh, float* out,
+            float* part, int n, int m, int d, float kappa, cudaStream_t s) {
+  const dim3 grid((n + p.rows - 1) / p.rows, p.ranges);
+  gram_matvec_kernel<SHAPE, DP, TAIL><<<grid, THREADS, 0, s>>>(x, y, yh, out, part, n, m, d,
+                                                              p.per, p.tiles, kappa);
+}
+
+template <int SHAPE>
+void launch_shape(const Plan& p, const float* x, const float* y, const float* yh, float* out,
+                  float* part, int n, int m, int d, float kappa, cudaStream_t s) {
+  if (d > DMAX)
+    launch<SHAPE, DMAX, true>(p, x, y, yh, out, part, n, m, d, kappa, s);
+  else if (p.dp == DMAX)
+    launch<SHAPE, DMAX, false>(p, x, y, yh, out, part, n, m, d, kappa, s);
+  else
+    launch<SHAPE, 8, false>(p, x, y, yh, out, part, n, m, d, kappa, s);
 }
 
 }  // namespace
 
-extern "C" int stpy_gram_matvec(const float* x, const float* y, const float* v,
-                                float* out, int n, int m, int d, float kappa,
-                                int shape, void* stream) {
-  const dim3 grid((n + TILE - 1) / TILE);
-  const dim3 block(TPB, TPB);
+// Floats of scratch that stpy_gram_matvec takes at this shape (the padded
+// points, then the ranges' partial sums); -1 if the device cannot be read.
+extern "C" long long stpy_gram_matvec_scratch(int n, int m, int d) {
+  Plan p;
+  if (n <= 0 || m <= 0 || d <= 0 || plan(n, m, d, &p)) return -1;
+  return p.head_floats + p.part_floats;
+}
+
+extern "C" int stpy_gram_matvec(const float* x, const float* y, const float* v, float* out,
+                                float* scratch, int n, int m, int d, float kappa, int shape,
+                                void* stream) {
+  if (n <= 0 || m <= 0 || d <= 0 || shape < 0 || shape > 3)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Plan p;
+  if (int err = plan(n, m, d, &p)) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* yh = scratch;
+  float* part = scratch + p.head_floats;
+  const int padded = p.tiles * TJ;
+  pad_points_kernel<<<(padded + 255) / 256, 256, 0, s>>>(y, v, yh, m, d, p.dp, padded);
   switch (shape) {
-    case 0: gram_matvec_kernel<0><<<grid, block, 0, s>>>(x, y, v, out, n, m, d, kappa); break;
-    case 1: gram_matvec_kernel<1><<<grid, block, 0, s>>>(x, y, v, out, n, m, d, kappa); break;
-    case 2: gram_matvec_kernel<2><<<grid, block, 0, s>>>(x, y, v, out, n, m, d, kappa); break;
-    case 3: gram_matvec_kernel<3><<<grid, block, 0, s>>>(x, y, v, out, n, m, d, kappa); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
+    case 0: launch_shape<0>(p, x, y, yh, out, part, n, m, d, kappa, s); break;
+    case 1: launch_shape<1>(p, x, y, yh, out, part, n, m, d, kappa, s); break;
+    case 2: launch_shape<2>(p, x, y, yh, out, part, n, m, d, kappa, s); break;
+    default: launch_shape<3>(p, x, y, yh, out, part, n, m, d, kappa, s); break;
   }
+  if (p.ranges > 1)
+    matvec_reduce_kernel<<<(n + 255) / 256, 256, 0, s>>>(part, p.ranges, n, kappa, out);
   return static_cast<int>(cudaGetLastError());
 }

@@ -3,9 +3,11 @@
 Port of stpy_tpu/ops/pallas_gram_matvec.py (`gram_matvec`, `gram_matmat`,
 `make_lazy_matvec`, `make_lazy_matmat`), shape "k". The 1/γ scaling (scalar
 or ARD) happens here, outside the kernels, as in the JAX package. For CUDA
-tensors `gram_matvec_scaled` launches csrc/gram_matvec.cu and
-`gram_matmat_scaled` launches csrc/gram_matmat.cu (f32 only; the product
-with V on the TF32 tensor cores in three passes); for CPU tensors
+tensors `gram_matvec_scaled` launches csrc/gram_matvec.cu (f32; x's rows in
+registers, y streamed through shared memory, the shape on the
+special-function unit) and `gram_matmat_scaled` launches
+csrc/gram_matmat.cu (f32 only; the product with V on the TF32 tensor cores
+in three passes); for CPU tensors
 they run `gram_matvec_plain` / `gram_matmat_plain`, the same function in
 PyTorch (any float dtype), which materialises K one row chunk at a time.
 
@@ -64,7 +66,11 @@ def _launch_shapes(name, xs, ys, lead):
 
 def gram_matvec_scaled(xs, ys, v, kappa, family="se", nu=1.5):
     """K(xs, ys)·v, (n,), for coordinates already scaled by 1/γ. CUDA: the
-    hand kernel; CPU: `gram_matvec_plain`."""
+    hand kernel, any d; it allocates a scratch of about (min(d, 16) + 4)·m
+    floats (y's points padded, with their norms and v) and, where it splits
+    the points into ranges, one partial sum per range and row. The
+    exponent is base 2 on the special-function unit (about 2 ulps) and the
+    diagonal term of K(x, x)·v is exactly κ·vᵢ. CPU: `gram_matvec_plain`."""
     code = shape_code(family, nu)
     v = v.reshape(-1)
     if not xs.is_cuda:
@@ -74,12 +80,17 @@ def gram_matvec_scaled(xs, ys, v, kappa, family="se", nu=1.5):
     xs, ys, v = xs.contiguous(), ys.contiguous(), v.contiguous()
     out = torch.empty(n, dtype=torch.float32, device=xs.device)
     if n == 0 or m == 0:
-        return out
+        return out.zero_()
     lib = _build.library()
     with torch.cuda.device(xs.device):
+        floats = lib.stpy_gram_matvec_scratch(n, m, d)
+        if floats < 0:
+            raise RuntimeError("gram_matvec: the device's SM count could not "
+                               "be read")
+        scratch = torch.empty(floats, dtype=torch.float32, device=xs.device)
         err = lib.stpy_gram_matvec(
             xs.data_ptr(), ys.data_ptr(), v.data_ptr(), out.data_ptr(),
-            n, m, d, float(kappa), code,
+            scratch.data_ptr(), n, m, d, float(kappa), code,
             torch.cuda.current_stream().cuda_stream,
         )
     _build.check(err, "gram_matvec")

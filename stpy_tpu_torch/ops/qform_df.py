@@ -11,7 +11,8 @@ points),
 so the quadratic form that the predictive variance subtracts is recovered
 with an error second order in W0's residual, and on the side that
 over-estimates the variance. For CUDA tensors `qform_refined_strip` launches
-csrc/qform_df.cu (f32 operands, FP64 inside); for CPU tensors it runs
+csrc/qform_df.cu (f32 operands, widened to FP64 tiles by a pre-pass, the
+product on the FP64 tensor cores); for CPU tensors it runs
 `qform_df_plain`, the f64 evaluation of the JAX package's x64 branch
 (`_qform_f64`, pallas_qform_df.py:351-364).
 """
@@ -50,8 +51,10 @@ def qform_refined_strip(Th, Tl, W0k, W0a, Bh, Bl, s):
     W0k the full (n, t) solve, W0a, Bh, Bl the chunk's (c, t) rows. Returns
     the strip's share (qh, ql) of the column sums; the strips of a
     partition of the rows add up to the square call. CUDA: the hand kernel
-    (f32 operands; transposed views are copied to row-major first); CPU:
-    `qform_df_plain`."""
+    (f32 operands; transposed views are copied to row-major first), which
+    widens Th + Tl and W0k to float64 tiles in a scratch of about
+    8·(c + t)·n bytes (4 GiB at c = n = t = 16384) and multiplies them on
+    the FP64 tensor cores; CPU: `qform_df_plain`."""
     c, n = Th.shape
     t = W0k.shape[1]
     if (Tl.shape != (c, n) or W0k.shape != (n, t)
@@ -74,10 +77,13 @@ def qform_refined_strip(Th, Tl, W0k, W0a, Bh, Bl, s):
     lib = _build.library()
     part = torch.empty((lib.stpy_qform_df_row_tiles(c), t),
                        dtype=torch.float64, device=Th.device)
+    scratch = torch.empty(lib.stpy_qform_df_scratch(c, n, t),
+                          dtype=torch.float64, device=Th.device)
     with torch.cuda.device(Th.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.stpy_qform_df(*(a.data_ptr() for a in ops), s2,
-                                part.data_ptr(), c, n, t, stream)
+                                part.data_ptr(), scratch.data_ptr(), c, n, t,
+                                stream)
         _build.check(err, "qform_df")
         err = lib.stpy_qform_df_reduce(part.data_ptr(), part.shape[0], t,
                                        qh.data_ptr(), ql.data_ptr(), stream)

@@ -231,7 +231,8 @@ def test_build_command_targets_sm90a_and_every_source():
     assert [c for c in link if c.endswith(".o")] == [str(o) for o in objs]
     # a header edit builds anew: headers are part of the library's hash
     assert {h.name for h in _build.headers()} == {"gram_shape.cuh",
-                                                  "gram_df_entry.cuh"}
+                                                  "gram_df_entry.cuh",
+                                                  "async_copy.cuh"}
     assert _build.library_path().parent.parent == _build.BUILD_ROOT
 
 

@@ -238,6 +238,108 @@ def test_gram_matmat_matches_jax_past_the_features_the_kernel_stages(family,
     assert rel_err(got.numpy(), want) <= RTOL
 
 
+LOG2E = np.float32(1.4426950408889634)
+# (family, nu, γ): the four shapes of csrc/gram_matvec.cu at the lazy tiers'
+# scales; ragged (n, m, d): fewer features than the kernel holds in
+# registers (8), 8, more (16) and past them (read from global memory)
+EMULATED = [("se", 1.5, 0.5), ("matern", 0.5, 0.8), ("matern", 1.5, 0.8),
+            ("matern", 2.5, 0.8)]
+EMULATED_SHAPES = [(37, 53, 3), (130, 300, 8), (61, 517, 11), (45, 200, 20)]
+
+
+def _fma32(a, b, c):
+    """fmaf in numpy: the product of two f32 values is exact in float64, so
+    the sum rounds once there and once more to f32 (the double rounding
+    differs from one fused rounding by at most 1 ulp, and rarely)."""
+    return (np.float64(a) * b + c).astype(np.float32)
+
+
+def _ulps_up(a, k):
+    for _ in range(k):
+        a = np.nextafter(a, np.float32(np.inf), dtype=np.float32)
+    return a
+
+
+def _ex2(a):
+    """ex2.approx.ftz.f32 modelled 2 ulps above 2**a, exact at a = 0."""
+    e = np.exp2(np.float64(a)).astype(np.float32)
+    return np.where(a == 0, np.float32(1), _ulps_up(e, 2))
+
+
+def _sqrt(a):
+    """sqrt.approx.ftz.f32 modelled 1 ulp above √a, exact at a = 0."""
+    r = np.sqrt(np.float64(a)).astype(np.float32)
+    return np.where(a == 0, np.float32(0), _ulps_up(r, 1))
+
+
+def emulate_gram_matvec(xs, ys, v, kappa, family, nu):
+    """csrc/gram_matvec.cu's arithmetic in f32: the norms and dots by one
+    fmaf chain over ascending features, sq = max(|x|² + |y|² − 2x·y, 0),
+    gram_shape.cuh's shape_exp2 (the constant folded into an f32 exponent
+    of base 2), each term fmaf'd into its row's sum in ascending j (one
+    range: the longest f32 chain the kernel runs). Returns (out, sq, K)."""
+    f32 = np.float32
+    nx = np.zeros(xs.shape[0], f32)
+    ny = np.zeros(ys.shape[0], f32)
+    dot = np.zeros((xs.shape[0], ys.shape[0]), f32)
+    for k in range(xs.shape[1]):
+        nx = _fma32(xs[:, k], xs[:, k], nx)
+        ny = _fma32(ys[:, k], ys[:, k], ny)
+        dot = _fma32(xs[:, k, None], ys[None, :, k], dot)
+    t = (nx[:, None] + ny[None, :]).astype(f32)
+    sq = np.maximum((np.float64(t) - 2.0 * np.float64(dot)).astype(f32), f32(0))
+    if family == "se":
+        K = _ex2((f32(-0.5) * LOG2E * sq).astype(f32))
+    else:
+        r = _sqrt(sq)
+        c = {0.5: f32(1), 1.5: f32(1.7320508075688772),
+             2.5: f32(2.23606797749979)}[nu]
+        e = _ex2(((-c * LOG2E).astype(f32) * r).astype(f32))
+        k = (c * r).astype(f32)
+        if nu == 0.5:
+            K = e
+        elif nu == 1.5:
+            K = _fma32(k, e, e)
+        else:
+            poly = _fma32(_fma32(k, f32(1.0 / 3.0), f32(1)), k, f32(1))
+            K = (poly * e).astype(f32)
+    acc = np.zeros(xs.shape[0], f32)
+    for j in range(ys.shape[0]):
+        acc = _fma32(K[:, j], v[j], acc)
+    return (f32(kappa) * acc).astype(f32), sq, K
+
+
+@pytest.mark.parametrize("n,m,d", EMULATED_SHAPES,
+                         ids=[f"{n}x{m}_d{d}" for n, m, d in EMULATED_SHAPES])
+@pytest.mark.parametrize("family,nu,gamma", EMULATED,
+                         ids=["se", "matern12", "matern32", "matern52"])
+def test_base2_shapes_hold_the_card_kernels_f32_bar(family, nu, gamma, n, m,
+                                                     d):
+    """csrc/gram_matvec.cu's arithmetic, emulated (`emulate_gram_matvec`,
+    MUFU.EX2 2 ulps off, MUFU.SQRT 1): held, as chip_smoke.py holds the
+    kernel, to 2·√m·eps32 of Σⱼ|Kᵢⱼ||vⱼ| against the JAX package's float64
+    gram_matvec on the same f32 inputs. Where y_j is a copy of x_i, sq is
+    exactly 0 and the entry exactly 1, so K(x, x)'s diagonal is exactly κ."""
+    rng = np.random.default_rng(14)
+    spread = np.sqrt(8.0 / d) if d > 8 else 1.0
+    xs = (rng.uniform(-1, 1, (n, d)) * spread / gamma).astype(np.float32)
+    ys = (rng.uniform(-1, 1, (m, d)) * spread / gamma).astype(np.float32)
+    ys[::7][:n] = xs[:len(ys[::7])]          # every 7th point a copy of an x
+    v = rng.standard_normal(m).astype(np.float32)
+    got, sq, K = emulate_gram_matvec(xs, ys, v, 1.3, family, nu)
+    kw = dict(family=family, gamma=1.0, kappa=1.3, nu=nu)
+    x64, y64 = jnp.asarray(xs, jnp.float64), jnp.asarray(ys, jnp.float64)
+    ref = np.asarray(jax_mv.gram_matvec(x64, y64, jnp.asarray(v, jnp.float64),
+                                        **kw))
+    scale = np.asarray(jax_mv.gram_matvec(
+        x64, y64, jnp.asarray(np.abs(v), jnp.float64), **kw))
+    bar = 2.0 * np.sqrt(m) * 2.0 ** -23
+    assert float(np.max(np.abs(np.float64(got) - ref) / scale)) <= bar
+    copies = np.arange(0, m, 7)[:n]
+    rows = np.arange(len(copies))
+    assert np.all(sq[rows, copies] == 0) and np.all(K[rows, copies] == 1)
+
+
 class _FakeCuda(torch.Tensor):
     """A CPU tensor that claims to live on the card: it reaches the CUDA
     branch of a wrapper, whose input checks run before any kernel is built."""
