@@ -23,13 +23,22 @@ from its pieces, held bit for bit to it; last
 exp_r3_df_entry.py, the port of
 benchmarks/exp_r3_batch_{p,t,u,x}.py) at full size, every stage of the
 df Matérn entry held to 1e-13 of host float64 and 40-digit decimal, on the
-gram_df_stages kernel and gram_df.cu's stage launch. The launch counters, zeroed
-just before each tier's run and read just after, show that each tier went
-through its kernels; every tier and every kernel is timed. With --profile
-it also traces one warm fit_predict of the single, double and var_refine
-tiers, one warm 65k lazy fit and one warm fast factor with torch.profiler
-(phase 10): device busy time and idle share, host time, peak memory, and
-the kernels that take the time. Every phase asserts; any failure exits
+gram_df_stages kernel and gram_df.cu's stage launch; then (phase 13) the
+matrix-free hyperparameter fit (parallel/bbmm.py, parallel/slq.py): the
+evidence gradient at n = 32768 on phase 8's data and kernel, and on an ARD
+SE kernel, against the dense float64 gradient within the Hutchinson
+estimator's own spread, benchmarks/exp_lazy_hyperfit.py's full 65k fit,
+and IterativeGP.optimize_params on phase 9's GP, refitted to its float64
+residual. Phase 2c holds both matrix-free kernels in their derivative
+shapes ("dk_sq", "dk") too, and gram_matvec's backward against float64
+autograd. The launch counters, zeroed just before each tier's run and read
+just after, show that each tier went through its kernels (the derivative
+shapes counted apart); every tier and every kernel is timed. With
+--profile it also traces one warm fit_predict of the single, double and
+var_refine tiers, one warm 65k lazy fit, one warm fast factor (phase 10)
+and one warm 65k evidence step (phase 13) with torch.profiler: device busy
+time and idle share, host time, peak memory, and the kernels and kernel
+shapes that take the time. Every phase asserts; any failure exits
 non-zero.
 
 The last line of standard output is one JSON object
@@ -71,16 +80,24 @@ from stpy_tpu_torch.ops.gram_df_stages import (
     gram_df_stage, gram_df_stage_plain,
 )
 from stpy_tpu_torch.ops.gram_l1 import gram_l1, gram_l1_plain
+from stpy_tpu_torch.ops.gram import SHAPES
 from stpy_tpu_torch.ops.gram_matvec import (
-    gram_matmat_plain, gram_matmat_scaled, gram_matvec_plain,
-    gram_matvec_scaled,
+    gram_matmat_plain, gram_matmat_scaled, gram_matvec, gram_matvec_plain,
+    gram_matvec_scaled, shape_gram_plain,
 )
 from stpy_tpu_torch.ops.qform_df import qform_df_plain, qform_refined_strip
 from stpy_tpu_torch.ops.syrk import (
     _leaf_chol_, syrk_update_lower_, syrk_update_lower_plain_,
 )
-from stpy_tpu_torch.parallel import IterativeGP
-from stpy_tpu_torch.parallel import iterative
+from stpy_tpu_torch.parallel import (
+    IterativeGP, evidence_value_and_grad_lazy, evidence_value_and_grad_sum,
+    fit_evidence_lazy,
+)
+from stpy_tpu_torch.parallel import bbmm, iterative
+from stpy_tpu_torch.parallel.lazy_kernel import (
+    atom_params, fast_atoms, make_sum_matmat,
+)
+from stpy_tpu_torch.parallel.slq import slq_logdet
 from stpy_tpu_torch.probes import exp_r3_df_entry
 
 N = NTEST = 16384
@@ -182,6 +199,78 @@ def matmat_product_rtol(m):
     return max(8.0 * EPS32, matvec_rtol(m))
 
 
+# Phase 2c, the derivative shapes "dk_sq" = k'(sq)·sq and "dk" = k'(sq) of
+# both matrix-free products, for every fused family (family, nu, gamma):
+# against the plain version in float64 on the same f32 inputs, per row
+# within matvec_rtol(m) of Σⱼ|Kᵢⱼ||Vⱼc| plus the first-order effect of sq's
+# f32 rounding, (d + 4)·eps32·(|x̃ᵢ|² + |ỹⱼ|²) a pair (the FMA chains of the
+# norms and the dot, the subtraction, and x/γ's rounding), through
+# |∂s/∂sq|: unlike k's, the derivative shapes' slopes grow without bound as
+# sq → 0 (Matérn-½ and 3/2 "dk" as 1/r³ and 1/r), so near-coincident
+# points amplify sq's rounding in any f32 kernel of these entries. A point
+# against itself has sq exactly 0 (checked bit for bit on the diagonal) and
+# is left out of that term.
+DERIV_FAMILIES = (("se", 1.5, 0.5), ("matern", 0.5, 0.8), ("matern", 1.5, 0.8),
+                  ("matern", 2.5, 0.8))
+DERIV_SHAPES = SHAPES[1:]
+# the ARD trace term's block: 64 probes times 2d + 1 at d = 4
+ARD_TRACE_D, ARD_TRACE_R = 4, 64 * (2 * 4 + 1)
+# gram_matvec's backward (phase 2c): n = m points, d = 8; the gradients of
+# wᵀK(x, y)v against torch.autograd of the plain version in float64 on the
+# same f32 inputs, each within twice matvec_rtol(m) of the sum of the
+# absolute terms of its formula (`backward_scales`): each gradient combines
+# the errors of two products, and x/γ's f32 rounding, which the float64
+# reference does not make, adds to sq's
+BACKWARD_N = 2048
+
+# Phase 13, the matrix-free hyperparameter fit. 13.1 / 13.4: the evidence
+# gradient at n = LAZY_N on phase 8's data and kernel (and an ARD SE kernel
+# at d = 8), the probe and alpha CG at 1e-6, against the dense float64
+# gradient −½αᵀ∂Aα + ½ tr(A⁻¹∂A): each quadratic part within
+# QUAD_RTOL, each full gradient within HUTCH_SIGMAS of the Hutchinson
+# estimator's own standard deviation (exact, from the dense A⁻¹∂A) plus
+# GRAD_RTOL·|g|, (13.1) the SLQ NLL within NLL_RTOL at EVIDENCE_LANCZOS
+# steps (tests/test_parallel.py:270-278's bar and steps), and (both) the
+# SLQ log-determinant at EVIDENCE_LANCZOS steps within LOGDET_RTOL of the
+# float64 one. 13.4's NLL is printed, not held: there ½yᵀα, ½ log det A and
+# (n/2) log 2π nearly cancel (NLL ≈ −6.5e3 against log det A ≈ −7.9e4), so
+# a 2 % bar on the NLL would ask 0.2 % of the log-determinant; its
+# log-determinant, which does not cancel, is held instead. The SLQ error is
+# mostly the Lanczos truncation's bias (the Gauss nodes miss the eigenvalue
+# cluster at s²): 0.80 % (13.1) and 1.79 % (13.4) measured at 60 steps on an
+# H100 (PERF.md, PR 9), about 8 % at the default 30 steps (printed beside,
+# not held); the probes' standard error is printed beside.
+EVIDENCE_PROBES, EVIDENCE_LANCZOS = 64, 60
+QUAD_RTOL, HUTCH_SIGMAS, GRAD_RTOL, NLL_RTOL = 1e-3, 5.0, 1e-3, 0.02
+LOGDET_RTOL = 0.03
+ARD_GAMMA = tuple(float(g) for g in np.linspace(0.4, 1.2, D))
+# 13.2: benchmarks/exp_lazy_hyperfit.py's workload as written (n = 65536,
+# d = 4, SE, numpy seed 0, y = sin(3x₀) + cos(2x₁) + 0.1ε), with the rank-512
+# preconditioner of benchmarks/RESULTS.md:380; σ̂ must land in HYPERFIT_S
+# (the data's σ is 0.1). The TPU's fit is printed beside, not asserted.
+HYPERFIT = dict(gamma0=1.0, noise0=0.3, steps=25, lr=0.15, probes=64,
+                cg_tol=1e-5, cg_maxiter=300, probe_tol=1e-2, probe_maxiter=60,
+                tol=1e-2, precond_rank=512)
+HYPERFIT_D, HYPERFIT_S = 4, (0.08, 0.15)
+TPU_HYPERFIT = "gamma 0.999, sigma 0.120 (benchmarks/RESULTS.md:380)"
+# 13.3: IterativeGP.optimize_params on phase 9's fitted GP, a few steps
+OPTIMIZE_STEPS = 3
+# Phase 2c holds the derivative shapes at the sizes phase 13 launches them
+# too, as DERIV_FAMILIES' note says, on K(x, x) of uniform points at each
+# cell's n, d and starting lengthscales; a width None is gram_matvec, an
+# integer gram_matmat with that many columns (13.3: optimize_params' 64
+# probes; 13.4: the ARD quadratic term's d + 1 and the trace term's
+# probes·(2d + 1)). (cell, n, d, atoms (family, nu, γ), shape, widths)
+FIT_DERIV_SHAPES = (
+    ("13.1", LAZY_N, D, LAZY_ATOMS, "dk_sq", (None, EVIDENCE_PROBES)),
+    ("13.2", LAZY_BIG_N, HYPERFIT_D, (("se", 1.5, HYPERFIT["gamma0"]),),
+     "dk_sq", (None, HYPERFIT["probes"])),
+    ("13.3", LAZY_BIG_N, D, LAZY_ATOMS, "dk_sq", (None, 64)),
+    ("13.4", LAZY_N, D, (("se", 1.5, ARD_GAMMA),), "dk",
+     (D + 1, EVIDENCE_PROBES * (2 * D + 1))),
+)
+
+
 # lazy-tier bars against float64: at n = 32768 the single tier's mean 1e-3
 # and variance max 1e-2 (both above the f32 CG floor, ~sqrt(n)·eps32), the
 # double tier's mean 1e-6 (the ROADMAP's 1e-7 printed beside); at n = 65536
@@ -261,6 +350,12 @@ REPLACES = {
                        "benchmarks/exp_r3_batch_t.py:127, "
                        "benchmarks/exp_r3_batch_u.py:109, "
                        "benchmarks/exp_r3_batch_x.py:48"),
+    # the derivative shapes of the two matrix-free kernels (_SHAPES, :111)
+    **{f"{name}[{shape}]": (src, f"stpy_tpu/ops/pallas_gram_matvec.py:{line}")
+       for name, src, line in (
+           ("gram_matvec", "stpy_tpu_torch/csrc/gram_matvec.cu", 85),
+           ("gram_matmat", "stpy_tpu_torch/csrc/gram_matmat.cu", 161))
+       for shape in ("dk_sq", "dk")},
 }
 # the device kernels phase 10 counts under a name, where not `<name>_kernel`:
 # gram_matmat's, gram_matvec's and qform_df's calls run their pre-passes
@@ -360,28 +455,44 @@ def gram_bounds(n, m, d):
     }
 
 
-def matvec_bound(n, m, d, family, r=None):
+def shape_cost(family, nu=1.5, shape="k"):
+    """(f32 operations, special-function results) of one shape entry past
+    the squared distance, counted from gram_shape.cuh's shape_exp2: "k" SE
+    2 and an exp, Matérn 4, a sqrt and an exp; "dk_sq" / "dk" SE 3 / 2 and
+    an exp; Matérn: the sqrt, the exponent's FMUL and the exp, then for
+    ½ 2 FMULs / an FMUL, an FMAX and an IEEE division (a reciprocal on the
+    SFU and 4 FMAs), 3/2 2 / 1 FMULs, 5/2 an FMA and 3 / 2 FMULs."""
+    if shape == "k":
+        return (2, 1) if family == "se" else (4, 2)
+    if family == "se":
+        return (3, 1) if shape == "dk_sq" else (2, 1)
+    extra = {0.5: (2, 6), 1.5: (2, 1), 2.5: (4, 3)}[float(nu)]
+    sfu = 3 if (float(nu), shape) == (0.5, "dk") else 2
+    return 1 + extra[shape == "dk"], sfu
+
+
+def matvec_bound(n, m, d, family, r=None, nu=1.5, shape="k"):
     """gram_matvec (r = None) or gram_matmat with r columns: x, y and the
     right side read once, the output written once; per (i, j) pair 2d f32
-    operations for the squared distance, the shape (SE: 2 and one exp;
-    Matérn-3/2: 4, one sqrt and one exp) and 2 per column of the product
-    over F32_FLOPS, against the exps and sqrts over SFU_OPS; the larger of
-    the two is the operations' time."""
+    operations for the squared distance, the shape's (`shape_cost`) and 2
+    per column of the product over F32_FLOPS, against the exps and sqrts
+    over SFU_OPS; the larger of the two is the operations' time."""
     cols = 1 if r is None else r
-    shape_ops, sfu = (2, 1) if family == "se" else (4, 2)
+    shape_ops, sfu = shape_cost(family, nu, shape)
     t_bytes = 4 * ((n + m) * d + (n + m) * cols) / HBM_BPS * 1e3
     t_ops = n * m * max((2 * d + shape_ops + 2 * cols) / F32_FLOPS,
                         sfu / SFU_OPS) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def matmat_tc_bound(n, m, d, family, r):
+def matmat_tc_bound(n, m, d, family, r, nu=1.5, shape="k"):
     """gram_matmat as csrc/gram_matmat.cu computes it: the product with V in
     three TF32 passes on the tensor cores, 3·2·n·m·r operations over
     TF32_FLOPS, against the Gram entries' 2d + shape f32 operations over
     F32_FLOPS, their exps and sqrts over SFU_OPS, and the bytes of
-    `matvec_bound`; the largest of these."""
-    shape_ops, sfu = (2, 1) if family == "se" else (4, 2)
+    `matvec_bound`; the largest of these. The entries are counted once,
+    though the kernel computes them once per 128-column slab."""
+    shape_ops, sfu = shape_cost(family, nu, shape)
     t_bytes = 4 * ((n + m) * d + (n + m) * r) / HBM_BPS * 1e3
     t_ops = max(6 * n * m * r / TF32_FLOPS, n * m * (2 * d + shape_ops) / F32_FLOPS,
                 n * m * sfu / SFU_OPS) * 1e3
@@ -399,6 +510,13 @@ def syrk_bound(m, k):
     """syrk_lower: the lower half of T read and written once, W read once;
     m(m+1)/2 entries times 2k f32 operations."""
     return bound(4 * m * (m + 1) + 4 * m * k, m * (m + 1) * k, F32_FLOPS)
+
+
+def syrk_tc_bound(m, k):
+    """syrk_lower's bound on the yardstick of gram_matmat's: the same bytes,
+    the m(m+1)k operations in three TF32 passes on the tensor cores (the
+    3xTF32 split keeps f32 accuracy there), 3·m(m+1)k over TF32_FLOPS."""
+    return bound(4 * m * (m + 1) + 4 * m * k, 3 * m * (m + 1) * k, TF32_FLOPS)
 
 
 def leaf_bound(n):
@@ -633,17 +751,296 @@ def diagonal_rows(n):
     return sorted({0, n // 2, n - 1})
 
 
-def matvec_diagonal_check(xs, fam, nu):
-    """gram_matvec_scaled(xs, xs, e_i)[i] == DIAG_KAPPA bit for bit at the
-    first, a middle and the last row: the diagonal term is exact."""
+def diagonal_value(fam, nu, shape="k"):
+    """κ·s(0) in f32 as the kernels form it: s(0) = 1 for "k", 0 for
+    "dk_sq", k'(0) for "dk" (Matérn-½: −½ over the clamp 1e-6, an IEEE f32
+    division), times DIAG_KAPPA in f32."""
+    f32 = torch.float32
+    if shape == "k":
+        s0 = torch.tensor(1.0, dtype=f32)
+    elif shape == "dk_sq":
+        s0 = torch.tensor(0.0, dtype=f32)
+    elif fam == "se":
+        s0 = torch.tensor(-0.5, dtype=f32)
+    elif nu == 0.5:
+        s0 = torch.tensor(-0.5, dtype=f32) / torch.tensor(1e-6, dtype=f32)
+    else:
+        s0 = torch.tensor(-1.5 if nu == 1.5 else -5.0 / 6.0, dtype=f32)
+    return torch.tensor(DIAG_KAPPA, dtype=f32) * s0
+
+
+def matvec_diagonal_check(xs, fam, nu, shape="k"):
+    """gram_matvec_scaled(xs, xs, e_i)[i] == `diagonal_value` bit for bit at
+    the first, a middle and the last row: the diagonal term is exact."""
     n = xs.shape[0]
-    kappa = torch.tensor(DIAG_KAPPA, dtype=torch.float32)
+    want = diagonal_value(fam, nu, shape)
     for i in diagonal_rows(n):
         e = torch.zeros(n, dtype=torch.float32, device=xs.device)
         e[i] = 1.0
-        got = gram_matvec_scaled(xs, xs, e, DIAG_KAPPA, fam, nu)[i].cpu()
-        assert torch.equal(got, kappa), ("gram_matvec diagonal", n, fam, i,
-                                         float(got))
+        got = gram_matvec_scaled(xs, xs, e, DIAG_KAPPA, fam, nu, shape)[i].cpu()
+        assert torch.equal(got, want), ("gram_matvec diagonal", n, fam, nu,
+                                        shape, i, float(got), float(want))
+
+
+def shape_slope(sq, fam, nu, shape):
+    """|∂s/∂sq| of a derivative shape, float64 (ρ = √(sq + 1e-30)):
+    SE "dk" e/4, "dk_sq" e|1 − sq/2|/2 (e = exp(−sq/2)); Matérn-½ "dk"
+    e(1 + ρ)/(4ρ³), "dk_sq" e|1 − ρ|/(4ρ); 3/2 "dk" 0.75·√3·e/ρ, "dk_sq"
+    1.5e|1 − √3ρ/2|; 5/2 "dk" (25/12)e, "dk_sq" |k'(sq)| + sq(25/12)e
+    (e = exp(−cρ), c = 1, √3, √5)."""
+    if fam == "se":
+        e = torch.exp(-0.5 * sq)
+        return 0.25 * e if shape == "dk" else 0.5 * e * (1 - 0.5 * sq).abs()
+    r = torch.sqrt(sq + 1e-30)
+    c = {0.5: 1.0, 1.5: math.sqrt(3.0), 2.5: math.sqrt(5.0)}[nu]
+    e = torch.exp(-c * r)
+    if nu == 0.5:
+        return (e * (1 + r) / (4 * r ** 3) if shape == "dk"
+                else e * (1 - r).abs() / (4 * r))
+    if nu == 1.5:
+        return (0.75 * c * e / r if shape == "dk"
+                else 1.5 * e * (1 - 0.5 * c * r).abs())
+    slope = 25.0 / 12.0 * e
+    return slope if shape == "dk" else (5.0 / 6.0) * (1 + c * r) * e + sq * slope
+
+
+def deriv_error(kernel_fn, xs, ys, V, fam, nu, shape):
+    """A derivative shape of a matrix-free product against its plain version
+    in float64 on the same f32 inputs: (max |Δ|, max |Δ| / Σⱼ|Kᵢⱼ||Vⱼc|,
+    max |Δ| / bar) with the bar of DERIV_FAMILIES' note; two launches must
+    give the same bits."""
+    out = kernel_fn(xs, ys, V, 1.0, fam, nu, shape)
+    again = kernel_fn(xs, ys, V, 1.0, fam, nu, shape)
+    assert torch.equal(out, again), "two launches gave different bits"
+    m, d = ys.shape
+    V64 = V.double().reshape(m, -1)
+    aV = V64.abs()
+    x64, y64 = xs.double(), ys.double()
+    ny = (y64 * y64).sum(1)
+    worst = [0.0, 0.0, 0.0]
+    for r0 in range(0, xs.shape[0], 4096):
+        xc = x64[r0:r0 + 4096]
+        K = shape_gram_plain(xc, y64, 1.0, fam, nu, shape)
+        ref, scale = K @ V64, K.abs() @ aV
+        del K
+        sq = ((xc * xc).sum(1)[:, None] + ny[None, :]
+              - 2.0 * xc @ y64.T).clamp_min_(0.0)
+        slope = shape_slope(sq, fam, nu, shape)
+        del sq
+        if ys is xs:     # a point against itself: sq exactly 0 in the kernel
+            slope.diagonal(r0).zero_()
+        nx = (xc * xc).sum(1)[:, None]
+        cond = nx * (slope @ aV) + slope @ (ny[:, None] * aV)
+        del slope
+        bar = matvec_rtol(m) * scale + (d + 4) * EPS32 * cond
+        diff = (out[r0:r0 + 4096].double().reshape(ref.shape) - ref).abs()
+        worst = [max(worst[0], float(diff.max())),
+                 max(worst[1], float((diff / scale).max())),
+                 max(worst[2], float((diff / bar).max()))]
+    return tuple(worst)
+
+
+def deriv_checks(dev):
+    """Phase 2c, the derivative shapes: gram_matvec and gram_matmat in
+    "dk_sq" and "dk" for every fused family (DERIV_FAMILIES) against their
+    plain versions (`deriv_error`), bitwise repeatable, on the ragged shape
+    (r = 77), the bench shape n = m = 16384 and the 65k lazy shape (r = 128),
+    both on the fit's own operator K(x, x), whose diagonal term is exact
+    (`matvec_diagonal_check`); each timed at 65k beside its bound, SE also
+    beside its plain version; then gram_matmat "dk" at the ARD trace term's
+    r = 576 (d = 4), against r = 128; then each shape at the sizes phase 13
+    launches it (FIT_DERIV_SHAPES), held the same way. Returns name[shape]
+    -> max abs error, (kernel ms, plain ms) and (bound ms, by) of SE at
+    65k, and the r = 576 timings."""
+    rng = np.random.default_rng(5)
+    err = {f"{k}[{s}]": 0.0 for k in ("gram_matvec", "gram_matmat")
+           for s in DERIV_SHAPES}
+    times, bounds = {}, {}
+    for label, (n, m, d) in (("ragged", RAGGED), ("16k", (N, N, D)),
+                             ("65k", (LAZY_BIG_N, LAZY_BIG_N, D))):
+        x = rng.uniform(-1, 1, (n, d))
+        y = rng.uniform(-1, 1, (m, d)) if label == "ragged" else x
+        v = torch.as_tensor(rng.standard_normal(m), dtype=torch.float32,
+                            device=dev)
+        r = RAGGED_R[0] if label == "ragged" else MATMAT_R
+        V = torch.as_tensor(rng.standard_normal((m, r)), dtype=torch.float32,
+                            device=dev)
+        for fam, nu, gamma in DERIV_FAMILIES:
+            xs = torch.as_tensor(x / gamma, dtype=torch.float32, device=dev)
+            ys = xs if y is x else torch.as_tensor(
+                y / gamma, dtype=torch.float32, device=dev)
+            for shape in DERIV_SHAPES:
+                if ys is xs:
+                    matvec_diagonal_check(xs, fam, nu, shape)
+                for name, fn, rhs in (("gram_matvec", gram_matvec_scaled, v),
+                                      ("gram_matmat", gram_matmat_scaled, V)):
+                    e, rel, of_bar = deriv_error(fn, xs, ys, rhs, fam, nu,
+                                                 shape)
+                    key = f"{name}[{shape}]"
+                    err[key] = max(err[key], e)
+                    line = (f"  {key:18s} {label:6s} {fam}-{nu} {n}x{m} d={d}"
+                            + ("" if name == "gram_matvec" else f" r={r}")
+                            + f": max abs err {e!r}, max err / sum|K||V| "
+                            f"{rel!r} (matvec_rtol {matvec_rtol(m)!r}), of the "
+                            f"bar {of_bar!r}, repeatable")
+                    if ys is xs and name == "gram_matvec":
+                        line += (f"; K(x, x)·e_i = "
+                                 f"{float(diagonal_value(fam, nu, shape))!r} "
+                                 f"exactly at rows {diagonal_rows(n)}")
+                    if label == "65k":
+                        k_ms = cuda_ms(lambda: fn(xs, ys, rhs, 1.0, fam, nu,
+                                                  shape), 3)
+                        bnd = (matvec_bound(n, m, d, fam, None, nu, shape)
+                               if name == "gram_matvec" else
+                               matmat_tc_bound(n, m, d, fam, r, nu, shape))
+                        line += f"; kernel {k_ms!r} ms, bound {bnd[0]!r} ms ({bnd[1]})"
+                        if fam == "se":
+                            plain = (gram_matvec_plain if name == "gram_matvec"
+                                     else gram_matmat_plain)
+                            p_ms = cuda_ms(lambda: plain(xs, ys, rhs, 1.0, fam,
+                                                         nu, shape), 3)
+                            k2 = cuda_ms(lambda: fn(xs, ys, rhs, 1.0, fam, nu,
+                                                    shape), 3)
+                            times[key] = ((k_ms + k2) / 2, p_ms)
+                            bounds[key] = bnd
+                            line += f", plain {p_ms!r} ms"
+                    print(line)
+                    assert of_bar <= 1.0, (key, label, fam, nu, rel, of_bar)
+        torch.cuda.empty_cache()
+    # the ARD trace term's block at d = 4: r = 576 columns, five 128-column
+    # slabs, each block computing its entries again
+    n, d = LAZY_BIG_N, ARD_TRACE_D
+    xs = torch.as_tensor(rng.uniform(-1, 1, (n, d)) / 0.5, dtype=torch.float32,
+                         device=dev)
+    wide = {}
+    for r in (MATMAT_R, ARD_TRACE_R):
+        V = torch.as_tensor(rng.standard_normal((n, r)), dtype=torch.float32,
+                            device=dev)
+        e, rel, of_bar = deriv_error(gram_matmat_scaled, xs, xs, V, "se", 1.5,
+                                     "dk")
+        assert of_bar <= 1.0, ("gram_matmat[dk]", r, rel, of_bar)
+        k_ms = cuda_ms(lambda: gram_matmat_scaled(xs, xs, V, 1.0, "se", 1.5,
+                                                  "dk"), 3)
+        bnd = matmat_tc_bound(n, n, d, "se", r, shape="dk")
+        wide[r] = (k_ms, bnd[0])
+        print(f"  gram_matmat[dk] SE {n}x{n} d={d} r={r}: max err / "
+              f"sum|K||V| {rel!r}, of the bar {of_bar!r}; kernel {k_ms!r} "
+              f"ms, bound {bnd[0]!r} ms ({bnd[1]})")
+        del V
+    print(f"  gram_matmat[dk] r={ARD_TRACE_R} against r={MATMAT_R}: "
+          f"{wide[ARD_TRACE_R][0] / wide[MATMAT_R][0]!r}x the time for "
+          f"{ARD_TRACE_R / MATMAT_R!r}x the columns (the entries computed "
+          f"once per 128-column slab, {-(-ARD_TRACE_R // MATMAT_R)} times)")
+    del xs
+    torch.cuda.empty_cache()
+    for cell, n, d, atoms, shape, widths in FIT_DERIV_SHAPES:
+        x = rng.uniform(-1, 1, (n, d))
+        for fam, nu, gamma in atoms:
+            xs = torch.as_tensor(x / np.asarray(gamma), dtype=torch.float32,
+                                 device=dev)
+            for r in widths:
+                name, fn = (("gram_matvec", gram_matvec_scaled) if r is None
+                            else ("gram_matmat", gram_matmat_scaled))
+                rhs = torch.as_tensor(
+                    rng.standard_normal(n if r is None else (n, r)),
+                    dtype=torch.float32, device=dev)
+                if r is None:
+                    matvec_diagonal_check(xs, fam, nu, shape)
+                e, rel, of_bar = deriv_error(fn, xs, xs, rhs, fam, nu, shape)
+                key = f"{name}[{shape}]"
+                err[key] = max(err[key], e)
+                print(f"  {key:18s} {cell} {fam}-{nu} {n}x{n} d={d}"
+                      + ("" if r is None else f" r={r}")
+                      + f": max abs err {e!r}, max err / sum|K||V| {rel!r}, "
+                      f"of the bar {of_bar!r}, repeatable"
+                      + ("; diagonal exact" if r is None else ""))
+                assert of_bar <= 1.0, (key, cell, fam, nu, r, rel, of_bar)
+                del rhs
+            del xs
+            torch.cuda.empty_cache()
+    return err, times, bounds, wide
+
+
+def backward_scales(x, y, v, w, g, kappa, fam, nu):
+    """Per gradient of L = wᵀK(x, y)v, the sum of the absolute values of
+    the terms of its formula (`ops.gram_matvec._GramMatvec`), float64:
+    v̄ |K|ᵀ|w|; κ̄ |w|ᵀ|K||v|/κ; scalar γ̄ (2/γ)|w|ᵀ|K_dk_sq||v|; ARD γ̄_c
+    (2/γ_c)Σᵢⱼ|wᵢ||K'ᵢⱼ||vⱼ|(|x̃ᵢc| + |ỹⱼc|)²; x̄_ic 2|wᵢ|Σⱼ|K'ᵢⱼ||vⱼ|
+    (|x̃ᵢc| + |ỹⱼc|)/γ_c and ȳ likewise (K' the "dk" shape)."""
+    g64 = g.double()
+    xs, ys = x.double() / g64, y.double() / g64
+    aw, av = w.double().abs(), v.double().abs()
+    K = shape_gram_plain(xs, ys, kappa, fam, nu).abs()
+    Kd = shape_gram_plain(xs, ys, kappa, fam, nu, "dk").abs()
+    out = {"v": K.T @ aw, "kappa": aw @ K @ av / kappa}
+    ax, ay = xs.abs(), ys.abs()
+    Kv, Ktw = Kd @ av, Kd.T @ aw
+    gv = g64.reshape(-1) if g64.dim() else g64.expand(x.shape[1])
+    out["x"] = 2 * aw[:, None] * (ax * Kv[:, None] + Kd @ (av[:, None] * ay)) / gv
+    out["y"] = 2 * av[:, None] * (ay * Ktw[:, None] + Kd.T @ (aw[:, None] * ax)) / gv
+    if g64.dim() == 0:
+        Ks = shape_gram_plain(xs, ys, kappa, fam, nu, "dk_sq").abs()
+        out["gamma"] = 2 / g64 * (aw @ Ks @ av)
+    else:
+        cross = (aw[:, None] * ax) * (Kd @ (av[:, None] * ay))
+        out["gamma"] = 2 / gv * ((aw[:, None] * ax * ax * Kv[:, None]).sum(0)
+                                 + 2 * cross.sum(0)
+                                 + aw @ (Kd @ (av[:, None] * ay * ay)))
+    return out
+
+
+def backward_check(dev):
+    """Phase 2c, gram_matvec's backward: at n = m = BACKWARD_N, d = 8, the
+    gradients of wᵀK(x, y)v in x, y, v, γ (SE and Matérn-3/2 with a scalar
+    γ, SE with an ARD γ) and κ from `ops.gram_matvec.gram_matvec`'s
+    autograd.Function on the card, against torch.autograd of the plain
+    version in float64 on the same f32 inputs, each within twice
+    matvec_rtol(m) of `backward_scales`. The three backward passes run
+    with the launch counters zeroed just before and read just after: the
+    training path through gram_matvec. Returns (max error over scale,
+    launches)."""
+    rng = np.random.default_rng(6)
+    n = BACKWARD_N
+    f32 = dict(dtype=torch.float32, device=dev)
+    x = torch.as_tensor(rng.uniform(-1, 1, (n, D)), **f32)
+    y = torch.as_tensor(rng.uniform(-1, 1, (n, D)), **f32)
+    v = torch.as_tensor(rng.standard_normal(n), **f32)
+    w = torch.as_tensor(rng.standard_normal(n), **f32)
+    cases = (("se", 1.5, 0.5), ("matern", 1.5, 0.8), ("se", 1.5, ARD_GAMMA))
+    inputs = [[t.clone().requires_grad_() for t in
+               (x, y, v, torch.tensor(g, **f32), torch.tensor(1.3, **f32))]
+              for _, _, g in cases]
+
+    def backward():
+        for (fam, nu, _), ins in zip(cases, inputs):
+            loss = w @ gram_matvec(ins[0], ins[1], ins[2], family=fam,
+                                   gamma=ins[3], kappa=ins[4], nu=nu)
+            loss.backward()
+
+    _, _, counts = counted(backward)
+    worst = 0.0
+    for (fam, nu, _), ins in zip(cases, inputs):
+        ref = [t.detach().double().requires_grad_() for t in ins]
+        K = shape_gram_plain(ref[0] / ref[3], ref[1] / ref[3], ref[4], fam, nu)
+        (w.double() @ (K @ ref[2])).backward()
+        del K
+        scales = backward_scales(*(t.detach() for t in ins[:3]), w,
+                                 ins[3].detach(), float(ins[4].detach()), fam, nu)
+        errs = {}
+        for name, t, r in zip(("x", "y", "v", "gamma", "kappa"), ins, ref):
+            errs[name] = float(((t.grad.double() - r.grad).abs()
+                                / scales[name]).max())
+        ard = "ARD " if ins[3].dim() else ""
+        print(f"  gram_matvec backward {fam}-{nu} {ard}γ, n = m = {n}, "
+              f"d = {D}: max err / scale " + ", ".join(
+                  f"{k} {e!r}" for k, e in errs.items())
+              + f" (bar {2 * matvec_rtol(n)!r})")
+        assert max(errs.values()) <= 2 * matvec_rtol(n), (fam, errs)
+        worst = max(worst, *errs.values())
+    print(f"  the three backward passes: launches {counts}")
+    assert counts["gram_matvec[dk]"] > 0 and counts["gram_matvec[dk_sq]"] > 0, counts
+    torch.cuda.empty_cache()
+    return worst, counts
 
 
 def matvec_checks(dev):
@@ -1156,12 +1553,13 @@ def precond_basis_check(kernel, x, matmat, rank=512):
     return out
 
 
-def exact_residual(x, y, alpha):
-    """‖y − (K + s²I)α‖/‖y‖ of the lazy tiers' system in float64, K·α by
-    the plain matvec one row chunk at a time (never the kernels under test)."""
+def exact_residual(x, y, alpha, atoms=LAZY_ATOMS, s=LAZY_S):
+    """‖y − (K + s²I)α‖/‖y‖ of the lazy tiers' system (atoms (family, nu,
+    γ), κ = 1) in float64, K·α by the plain matvec one row chunk at a time
+    (never the kernels under test)."""
     a64, y64 = alpha.double().reshape(-1), y.double().reshape(-1)
-    r = y64 - LAZY_S * LAZY_S * a64
-    for fam, nu, gamma in LAZY_ATOMS:
+    r = y64 - s * s * a64
+    for fam, nu, gamma in atoms:
         xs = x.double() / gamma
         r -= gram_matvec_plain(xs, xs, a64, 1.0, fam, nu)
     return float(torch.linalg.vector_norm(r) / torch.linalg.vector_norm(y64))
@@ -1175,7 +1573,7 @@ def profile_run(label, run, top=10, ops=LINALG_OPS):
     the `top` kernels by device time, each hand kernel's time and launches,
     the device time of each stage in `ops` (by default the linalg ones,
     LINALG_OPS) and the count and host time of the CG loops' device-to-host
-    scalar reads (HOST_READ_OPS)."""
+    scalar reads (HOST_READ_OPS). Returns (busy ms, span ms)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1212,6 +1610,19 @@ def profile_run(label, run, top=10, ops=LINALG_OPS):
             print(f"    kernel {kname}: {sum(t for t, _ in hits) / 1e3!r}"
                   f" ms over {sum(c for _, c in hits)} launches"
                   + (f" of {', '.join(stems)}" if len(stems) > 1 else ""))
+    # the matrix-free kernels by shape: the first template argument of
+    # gram_matvec_kernel / gram_matmat_kernel is the shape code
+    by_shape = {}
+    for name, (t, c) in per_name.items():
+        hit = (re.search(r"gram_mat(vec|mat)_kernel<(\d+)", name)
+               or re.search(r"gram_mat(vec|mat)_kernelILi(\d+)E", name))
+        if hit:
+            key = f"gram_mat{hit.group(1)}[{SHAPES[int(hit.group(2)) // 4]}]"
+            tt, cc = by_shape.get(key, (0.0, 0))
+            by_shape[key] = (tt + t, cc + c)
+    for key, (t, c) in sorted(by_shape.items()):
+        print(f"    shape {key}: {t / 1e3!r} ms over {c} launches "
+              f"({t / busy!r} of the busy time)")
     # device time of every kernel launched inside each linalg op of the path
     for avg in prof.key_averages():
         if avg.key in ops:
@@ -1220,6 +1631,7 @@ def profile_run(label, run, top=10, ops=LINALG_OPS):
         if avg.key in HOST_READ_OPS:
             print(f"    {avg.key} (host reads): {avg.count} calls, "
                   f"{avg.cpu_time_total / 1e3!r} ms host")
+    return busy / 1e3, span / 1e3
 
 
 def profile_tier(kernel, label, x, y, xt, **gp_kw):
@@ -1423,6 +1835,245 @@ def df_stage_phase(dev):
     return results, counts, err, times, bounds
 
 
+def atom_k64(x64, fam, gamma, kappa, deriv=None):
+    """One atom of the lazy tiers' kernels in float64 on the card, by plain
+    torch ops (no port code), one (n, n) buffer and at most one more:
+    κ·K (deriv None), ∂(κK)/∂γ for a scalar γ (deriv "gamma"), or
+    ∂(κK)/∂γ_c for an ARD γ (deriv = c). SE: K = e^{−sq/2}, ∂K/∂γ = K·sq/γ,
+    ∂K/∂γ_c = K·(x_c − y_c)²/γ_c³; Matérn-3/2: K = (1 + √3ρ)e^{−√3ρ},
+    ∂K/∂γ = 3ρ²e^{−√3ρ}/γ (sq = ρ² the scaled squared distance)."""
+    g = torch.as_tensor(gamma, dtype=torch.float64, device=x64.device)
+    xs = x64 / g
+    n2 = (xs * xs).sum(1)
+    sq = xs @ xs.T
+    sq.mul_(-2.0).add_(n2[:, None]).add_(n2[None, :]).clamp_min_(0.0)
+    if fam == "se":
+        if deriv == "gamma":
+            out = torch.exp(-0.5 * sq).mul_(sq).mul_(kappa / float(g))
+            del sq
+            return out
+        K = sq.mul_(-0.5).exp_().mul_(kappa)
+        if deriv is None:
+            return K
+        c = int(deriv)
+        xc = x64[:, c]
+        return K.mul_((xc[:, None] - xc[None, :]).square_()).div_(
+            float(g[c]) ** 3)
+    rho = sq.sqrt_()
+    e = torch.exp(-math.sqrt(3.0) * rho)
+    if deriv == "gamma":
+        return rho.square_().mul_(e).mul_(3.0 * kappa / float(g))
+    return rho.mul_(math.sqrt(3.0)).add_(1.0).mul_(e).mul_(kappa)
+
+
+def dense_evidence(x, y, atoms, s, probes):
+    """The exact NLL, log det A and, per hyperparameter (each atom's γ, or γ_c per dim
+    for an ARD γ, then its κ; last σ), (label, −½αᵀ∂Aα, ½tr(A⁻¹∂A), the
+    standard deviation of the port's estimator of ½tr(A⁻¹∂A) over `probes`
+    Rademacher probes), in float64 on the card from the Cholesky of
+    A = Σ κ_a K_a + σ²I. For B = A⁻¹∂A that deviation is
+    ½·√(Var(zᵀBz)/p), Var(zᵀBz) = ½Σᵢ≠ⱼ(Bᵢⱼ + Bⱼᵢ)². About 4 (n, n)
+    float64 buffers at a time (35 GB at n = 32768)."""
+    x64, y64 = x.double(), y.double().reshape(-1)
+    n = y64.shape[0]
+    A = None
+    for fam, gamma, kappa in atoms:
+        Ka = atom_k64(x64, fam, gamma, kappa)
+        A = Ka if A is None else A.add_(Ka)
+        del Ka
+    A.diagonal().add_(s * s)
+    L, info = torch.linalg.cholesky_ex(A)
+    assert int(info) == 0, info
+    del A
+    alpha = torch.cholesky_solve(y64[:, None], L)[:, 0]
+    logdet = 2.0 * float(torch.log(L.diagonal()).sum())
+    nll = float(0.5 * y64 @ alpha) + 0.5 * logdet + 0.5 * n * math.log(
+        2.0 * math.pi)
+    Ainv = torch.cholesky_inverse(L)
+    del L
+    out = []
+
+    def moments(label, dA):
+        quad = float(-0.5 * alpha @ (dA @ alpha))
+        B = Ainv @ dA
+        del dA
+        half_tr = 0.5 * float(B.diagonal().sum())
+        S = B + B.T
+        del B
+        var = 0.5 * (float(torch.linalg.vector_norm(S)) ** 2
+                     - float(S.diagonal().square().sum()))
+        del S
+        out.append((label, quad, half_tr, 0.5 * math.sqrt(var / probes)))
+
+    for a, (fam, gamma, kappa) in enumerate(atoms):
+        dims = ["gamma"] if np.ndim(gamma) == 0 else list(range(len(gamma)))
+        for c in dims:
+            moments(f"gamma{a}" + ("" if c == "gamma" else f"[{c}]"),
+                    atom_k64(x64, fam, gamma, kappa, c))
+        moments(f"kappa{a}", atom_k64(x64, fam, gamma, 1.0))
+    # σ: ∂A/∂σ = 2σI, so B = 2σA⁻¹ and B + Bᵀ = 4σA⁻¹
+    var = 0.5 * 16 * s * s * (float(torch.linalg.vector_norm(Ainv)) ** 2
+                              - float(Ainv.diagonal().square().sum()))
+    out.append(("noise", float(-s * alpha @ alpha),
+                s * float(Ainv.diagonal().sum()),
+                0.5 * math.sqrt(var / probes)))
+    del Ainv
+    torch.cuda.empty_cache()
+    return nll, logdet, out
+
+
+def port_quads(kernel, x, y, atoms, s):
+    """The port's quadratic parts −½αᵀ∂Aα, α from IterativeGP(lazy=True)'s
+    CG (the evidence body's solve): γ by `bbmm._atom_quad_gamma` ("dk_sq"
+    for a scalar γ, "dk" for ARD), κ by gram_matvec, σ as −σαᵀα."""
+    gp = IterativeGP(kernel, s=s, lazy=True)
+    gp.fit_gp(x, y)
+    alpha = gp.A[:, 0]
+    out = []
+    for fam, gamma, _ in atoms:
+        g = (torch.tensor(gamma, dtype=torch.float32, device=x.device)
+             if np.ndim(gamma) else gamma)
+        q = bbmm._atom_quad_gamma(x, alpha, g, 1.0, fam, 1.5)
+        out += [float(t) for t in q.reshape(-1)]
+        out.append(float(-0.5 * alpha @ gram_matvec(
+            x, x, alpha, family=fam, gamma=g, kappa=1.0, nu=1.5)))
+    out.append(float(-s * alpha @ alpha))
+    return out, gp.fit_status
+
+
+def flat_grads(g):
+    out = []
+    for ga, ka in zip(g["gammas"], g["kappas"]):
+        out += [float(t) for t in ga.reshape(-1)] + [float(ka)]
+    return out + [float(g["noise"])]
+
+
+def evidence_check(label, kernel, x, y, atoms, desc, gammas, hold_nll=True):
+    """Phase 13.1 / 13.4: `evidence_value_and_grad_sum` on the card (64
+    probes, alpha and probe CG at 1e-6, rank-512 preconditioner) against
+    `dense_evidence`, the quadratic parts (`port_quads`) too, the SLQ
+    log-determinant at EVIDENCE_LANCZOS steps, and with `hold_nll` the NLL;
+    the probes drawn on the card. Returns
+    (rows of (name, port g, dense g, bar), NLL pair, wall, launches)."""
+    (nll, grads), wall, counts = counted(lambda: evidence_value_and_grad_sum(
+        x, y, desc, gammas, [1.0] * len(desc), LAZY_S,
+        probes=EVIDENCE_PROBES, lanczos_iters=EVIDENCE_LANCZOS, cg_tol=1e-6,
+        cg_maxiter=500, probe_tol=1e-6, probe_maxiter=500, precond_rank=512,
+        generator=torch.Generator(device=x.device).manual_seed(13)))
+    quads, status = port_quads(kernel, x, y, atoms, LAZY_S)
+    fast = fast_atoms(kernel)
+    gk = [atom_params(kernel, a) for a in fast]
+    mm = make_sum_matmat(x, fast, [g for g, _ in gk], [k for _, k in gk],
+                         noise=LAZY_S)
+    slq = {it: slq_logdet(None, x.shape[0], probes=EVIDENCE_PROBES,
+                          lanczos_iters=it, dtype=x.dtype, device=x.device,
+                          matmat=mm, generator=torch.Generator(
+                              device=x.device).manual_seed(14))
+           for it in (30, EVIDENCE_LANCZOS)}
+    slq_se = {it: float(v.double().std()) / math.sqrt(EVIDENCE_PROBES)
+              for it, (_, v) in slq.items()}
+    slq = {it: float(ld) for it, (ld, _) in slq.items()}
+    t0 = time.perf_counter()
+    nll64, logdet64, exact = dense_evidence(x, y, atoms, LAZY_S,
+                                            EVIDENCE_PROBES)
+    print(f"  {label}: evidence {wall!r} s (launches {counts}); dense float64 "
+          f"reference {time.perf_counter() - t0!r} s; α's CG {status}")
+    rows = []
+    for (name, quad, half_tr, std), g, q in zip(exact, flat_grads(grads), quads):
+        g64 = quad + half_tr
+        bar = HUTCH_SIGMAS * std + GRAD_RTOL * abs(g64)
+        q_rel = abs(q - quad) / abs(quad)
+        print(f"    {name}: gradient {g!r} against {g64!r} (|Δ| "
+              f"{abs(g - g64)!r}, bar {bar!r} = {HUTCH_SIGMAS}·{std!r} + "
+              f"{GRAD_RTOL}·|g|); quadratic part {q!r} against {quad!r} "
+              f"(rel {q_rel!r}, bar {QUAD_RTOL})")
+        assert abs(g - g64) <= bar, (label, name, g, g64, bar)
+        assert q_rel <= QUAD_RTOL, (label, name, q, quad)
+        rows.append((name, g, g64, bar))
+    nll_rel = abs(float(nll) - nll64) / abs(nll64)
+    print(f"    NLL by SLQ {float(nll)!r} against {nll64!r} (rel {nll_rel!r}, "
+          + (f"bar {NLL_RTOL}" if hold_nll else "not held")
+          + f"); log det A by SLQ, {EVIDENCE_PROBES} probes: "
+          + ", ".join(f"{it} Lanczos steps {ld!r} (rel err "
+                      f"{abs(ld - logdet64) / abs(logdet64)!r}, the probes' "
+                      f"standard error {slq_se[it]!r})"
+                      for it, ld in slq.items())
+          + f", exact {logdet64!r} (bar at {EVIDENCE_LANCZOS} steps "
+          f"{LOGDET_RTOL})")
+    assert nll_rel <= NLL_RTOL or not hold_nll, (label, float(nll), nll64)
+    ld_rel = abs(slq[EVIDENCE_LANCZOS] - logdet64) / abs(logdet64)
+    assert ld_rel <= LOGDET_RTOL, (label, slq[EVIDENCE_LANCZOS], logdet64)
+    return rows, (float(nll), nll64), wall, counts
+
+
+def hyperfit_data(dev):
+    """benchmarks/exp_lazy_hyperfit.py:22-28: x ~ U(-1, 1)^(65536 × 4) in
+    f32, y = sin(3x₀) + cos(2x₁) + 0.1ε, numpy seed 0."""
+    rng = np.random.default_rng(0)
+    x = rng.uniform(-1, 1, (LAZY_BIG_N, HYPERFIT_D)).astype(np.float32)
+    y = (np.sin(3 * x[:, 0]) + np.cos(2 * x[:, 1])
+         + 0.1 * rng.standard_normal(LAZY_BIG_N)).astype(np.float32)
+    return torch.as_tensor(x, device=dev), torch.as_tensor(y, device=dev)
+
+
+def hyperfit_phase(dev):
+    """Phase 13.2: fit_evidence_lazy on exp_lazy_hyperfit.py's workload with
+    final_value=True, the launch counters zeroed just before and read just
+    after; σ̂ in HYPERFIT_S, no closing-SLQ error, and the final NLL under
+    the NLL at (γ₀, σ₀) by SLQ on the same generator
+    (`bbmm.step_generator(0, 0, dev)`). Returns (data, fit, wall, counts,
+    start NLL)."""
+    x, y = hyperfit_data(dev)
+    fit, wall, counts = counted(lambda: fit_evidence_lazy(
+        x, y, final_value=True, seed=0, **HYPERFIT))
+    kw = {k: HYPERFIT[k] for k in ("probes", "cg_tol", "cg_maxiter",
+                                   "probe_tol", "probe_maxiter",
+                                   "precond_rank")}
+    nll0, _ = evidence_value_and_grad_lazy(
+        x, y, HYPERFIT["gamma0"], 1.0, HYPERFIT["noise0"], compute_value=True,
+        generator=bbmm.step_generator(0, 0, dev), **kw)
+    shapes = {k: c for k, c in counts.items() if k.startswith("gram_mat")}
+    print(f"  fit_evidence_lazy, n = {LAZY_BIG_N}, d = {HYPERFIT_D}, SE: "
+          f"{wall!r} s for {fit['steps_run']} steps (with the closing SLQ), "
+          f"{wall / fit['steps_run']!r} s a step; γ̂ {fit['gamma']!r}, σ̂ "
+          f"{fit['noise']!r} (the reference's TPU fit: {TPU_HYPERFIT}); NLL "
+          f"{fit['nll']!r} against {float(nll0)!r} at (γ₀, σ₀); nll_error "
+          f"{fit['nll_error']}; history {fit['history']}; launches {shapes}")
+    assert fit["nll_error"] is None, fit["nll_error"]
+    assert HYPERFIT_S[0] <= fit["noise"] <= HYPERFIT_S[1], fit["noise"]
+    assert fit["nll"] < float(nll0), (fit["nll"], float(nll0))
+    assert counts["gram_matvec[dk_sq]"] > 0 and counts["gram_matmat[dk_sq]"] > 0, counts
+    return (x, y), fit, wall, counts, float(nll0)
+
+
+def optimize_phase(gp, x, y):
+    """Phase 13.3: IterativeGP.optimize_params (OPTIMIZE_STEPS steps of
+    `fit_evidence_sum` over the SE + Matérn-3/2 atoms, the model's rank-2048
+    preconditioner) on phase 9's fitted GP, counted; the fitted γ_a and σ
+    written back, and the refit's float64 residual under the fitted values
+    at most LAZY_RESIDUAL_MAX. Returns (out, wall, counts, residual)."""
+    before = [float(gp.kernel_object.params_dict[str(i)]["gamma"])
+              for i in range(2)]
+    s0 = gp.s
+    out, wall, counts = counted(lambda: gp.optimize_params(
+        steps=OPTIMIZE_STEPS))
+    after = [float(gp.kernel_object.params_dict[str(i)]["gamma"])
+             for i in range(2)]
+    atoms = [(fam, nu, g) for (fam, nu, _), g in zip(LAZY_ATOMS, after)]
+    resid = exact_residual(x, y, gp.A, atoms, gp.s)
+    print(f"  optimize_params({OPTIMIZE_STEPS} steps), n = {LAZY_BIG_N}: "
+          f"{wall!r} s with the refit; γ {before} -> {after}, σ {s0!r} -> "
+          f"{gp.s!r}; refit {gp.fit_status}; exact relative residual under "
+          f"the fitted values (float64) {resid!r} (bar {LAZY_RESIDUAL_MAX}); "
+          f"launches {counts}")
+    assert out["steps_run"] == OPTIMIZE_STEPS, out
+    assert after == [float(g) for g in out["gammas"]] and gp.s == out["noise"]
+    assert after != before and gp.s != s0
+    assert resid <= LAZY_RESIDUAL_MAX, resid
+    assert counts["gram_matvec[dk_sq]"] > 0 and counts["gram_matmat[dk_sq]"] > 0, counts
+    return out, wall, counts, resid
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
@@ -1455,6 +2106,11 @@ def main(argv=None) -> int:
     errs |= errs_mv
     errs["gram_matmat"] = max(errs["gram_matmat"],
                               matmat_few_points_checks(dev))
+    errs_d, deriv_times, deriv_bounds, ard_trace = deriv_checks(dev)
+    errs |= errs_d
+    ktimes |= deriv_times
+    bounds |= deriv_bounds
+    backward_err, backward_counts = backward_check(dev)
     matvec_m32_ms = {label: t.pop("gram_matvec_matern32")
                      for label, t in mv_times.items()}
     # the record carries the lazy tier's shape (65k, SE), the main path's
@@ -1555,6 +2211,7 @@ def main(argv=None) -> int:
           + ", ".join(f"{k} {v!r} s" for k, v in walls.items()))
     shapes = {"gram_matvec": "the 65k lazy shape",
               "gram_matmat": "the 65k lazy shape",
+              **{k: "the 65k lazy shape, SE" for k in deriv_times},
               "syrk_lower": f"m = {SYRK_PROBE[0]}, k = {SYRK_PROBE[1]}",
               "chol_leaf": f"n = {LEAF_SIZES[0]}"}
     for name, (k_ms, p_ms) in ktimes.items():
@@ -1570,7 +2227,9 @@ def main(argv=None) -> int:
     print(f"  qform_df: cuBLAS f64 DGEMM of the same (c, n)·(n, t) product "
           f"(a library product, not the same function) {qtimes[2]!r} ms")
     print(f"  syrk_lower: torch.addmm(T, W, W.T, alpha=-1) {library['syrk_lower']!r}"
-          " ms (not the same function: the full square, twice the work)")
+          " ms (not the same function: the full square, twice the work); "
+          "bound with the product in three TF32 passes on the tensor cores "
+          f"{syrk_tc_bound(*SYRK_PROBE)[0]!r} ms")
     print(f"  chol_leaf: torch.linalg.cholesky_ex at n = {LEAF_SIZES[0]} "
           f"{library['chol_leaf']!r} ms; at n = {2 * LEAF_SIZES[0]}: "
           f"_leaf_chol_ (two leaves, the split's inverse and products) "
@@ -1718,7 +2377,8 @@ def main(argv=None) -> int:
         profile_run("fast factor (chol_dense(fast=True), n = 16384)",
                     lambda: linalg.chol_dense(A, fast=True), ops=FAST_OPS)
         del x, y, xt, A
-    del gpb, xb, yb, xtb
+    # phase 13.3 goes on from the fitted gpb
+    del xtb
     torch.cuda.empty_cache()
 
     print(f"== phase 11: the fast factor (chol_dense(fast=True)) in "
@@ -1743,6 +2403,72 @@ def main(argv=None) -> int:
     launches |= {name: ("df_entry_probe", probe_counts[name])
                  for name in stage_times}
 
+    print("== phase 13: the matrix-free hyperparameter fit (parallel/bbmm.py, "
+          "parallel/slq.py, IterativeGP.optimize_params)")
+    torch.cuda.empty_cache()
+    xl, yl, _ = bench_data(dev, LAZY_N, LAZY_T)
+    sum_atoms = [(fam, gamma, 1.0) for fam, _, gamma in LAZY_ATOMS]
+    ev_sum = evidence_check(
+        f"13.1 SE(0.5) + Matérn-3/2(0.8), n = {LAZY_N}, d = {D}, s = {LAZY_S}",
+        lazy_kernel(dev), xl, yl[:, 0], sum_atoms,
+        tuple((fam, nu, None) for fam, nu, _ in LAZY_ATOMS),
+        [gamma for _, _, gamma in LAZY_ATOMS])
+    hyper_data, hyperfit, hyper_wall, hyper_counts, hyper_nll0 = \
+        hyperfit_phase(dev)
+    if profile:
+        xh, yh = hyper_data
+        kw = {k: HYPERFIT[k] for k in ("probes", "cg_tol", "cg_maxiter",
+                                       "probe_tol", "probe_maxiter",
+                                       "precond_rank")}
+
+        def step(where):
+            return lambda: evidence_value_and_grad_lazy(
+                xh, yh, hyperfit["gamma"], 1.0, hyperfit["noise"],
+                compute_value=False,
+                generator=bbmm.step_generator(0, 1, where), **kw)
+
+        # the step as the fit runs it (probes and landmarks drawn on the
+        # card), then with them drawn on the host and copied over: the
+        # difference in idle time is the host draws' share
+        idle = {}
+        for where in (dev, "cpu"):
+            step(where)()
+            busy, span = profile_run(
+                f"one warm evidence step of 13.2 (n = {LAZY_BIG_N}, d = "
+                f"{HYPERFIT_D}, SE, at the fitted values; random draws on "
+                f"{torch.device(where).type})", step(where))
+            idle[torch.device(where).type] = span - busy
+        print(f"  the host draws' share of that step's idle time: "
+              f"{(idle['cpu'] - idle['cuda']) / idle['cpu']!r} ({idle['cpu']!r}"
+              f" ms idle with them, {idle['cuda']!r} ms without)")
+        del xh, yh
+    del hyper_data
+    torch.cuda.empty_cache()
+    optimized, opt_wall, opt_counts, opt_resid = optimize_phase(gpb, xb, yb)
+    del gpb, xb, yb
+    torch.cuda.empty_cache()
+    ard_kernel = KernelFunction(kernel_name="ard", ard_gamma=list(ARD_GAMMA),
+                                d=D, device=dev)
+    ev_ard = evidence_check(
+        f"13.4 ARD SE, γ = {ARD_GAMMA}, n = {LAZY_N}, d = {D}, s = {LAZY_S}",
+        ard_kernel, xl, yl[:, 0], [("se", ARD_GAMMA, 1.0)],
+        (("se", 1.5, None),),
+        [torch.tensor(ARD_GAMMA, dtype=torch.float32, device=dev)],
+        hold_nll=False)
+    assert ev_ard[3]["gram_matmat[dk]"] > 0, ev_ard[3]
+    del xl, yl
+    torch.cuda.empty_cache()
+    launches |= {
+        "gram_matvec[dk_sq]": ("hyperfit_65k",
+                               hyper_counts["gram_matvec[dk_sq]"]),
+        "gram_matmat[dk_sq]": ("hyperfit_65k",
+                               hyper_counts["gram_matmat[dk_sq]"]),
+        "gram_matmat[dk]": ("ard_evidence_32k", ev_ard[3]["gram_matmat[dk]"]),
+        "gram_matvec[dk]": ("matvec_backward",
+                            backward_counts["gram_matvec[dk]"])}
+    walls |= {"evidence_32k_sum": ev_sum[2], "evidence_32k_ard": ev_ard[2],
+              "hyperfit_65k": hyper_wall, "optimize_params_65k": opt_wall}
+
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": REPLACES[name][0],
          "replaces": REPLACES[name][1], "tier": launches[name][0],
@@ -1755,6 +2481,7 @@ def main(argv=None) -> int:
         "gram_matvec_matern32_ms": matvec_m32_ms,
         "var_refine_peak_gib": refined_peak,
         "gram_matmat_f32_pipe_bound_ms": matmat_f32_bound[0],
+        "syrk_lower_tc_bound_ms": syrk_tc_bound(*SYRK_PROBE)[0],
         "chol_leaf_grid": leaf_grids,
         "leaf_chol_2048_ms": leaf2048[0],
         "cholesky_ex_2048_ms": leaf2048[1],
@@ -1772,7 +2499,21 @@ def main(argv=None) -> int:
         "lazy_32k_precond_basis": basis,
         "fast_chol": {**fast, "factor_ms": factor_ms,
                       "factor_peak_gib": peaks, "unjittered": unjittered},
-        "df_entry_probe": probe}
+        "df_entry_probe": probe,
+        "gram_matvec_backward_max_err_over_scale": backward_err,
+        "gram_matmat_dk_ard_trace": {
+            "r": ARD_TRACE_R, "d": ARD_TRACE_D,
+            "ms": ard_trace[ARD_TRACE_R][0],
+            "bound_ms": ard_trace[ARD_TRACE_R][1],
+            "ms_at_r128": ard_trace[MATMAT_R][0]},
+        "evidence_32k": {"sum": ev_sum[:2], "ard": ev_ard[:2]},
+        "hyperfit_65k": {k: hyperfit[k] for k in (
+            "gamma", "kappa", "noise", "nll", "steps_run")} | {
+            "nll_start": hyper_nll0, "launches": hyper_counts},
+        "optimize_params_65k": {"gammas": optimized["gammas"],
+                                "noise": optimized["noise"],
+                                "residual": opt_resid,
+                                "launches": opt_counts}}
     print(json.dumps(record))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -2,8 +2,12 @@
 // K[i, j] = kappa * shape(|x_i - y_j|^2) never stored.
 //
 // Replaces stpy_tpu/ops/pallas_gram_matvec.py:_gram_matmat_kernel (the
-// pallas_call in _gram_matmat_pallas), shape "k".  The coordinates arrive
-// already scaled by 1/gamma, as in pallas_gram_matvec.gram_matmat.
+// pallas_call in _gram_matmat_pallas) in all three of its shapes: the kernel
+// "k" and the derivative shapes "dk_sq" = k'(sq) sq and "dk" = k'(sq)
+// (codes 0-11 of gram_shape.cuh, one template instance each; both
+// derivatives are <= 0, and the TF32 split takes either sign).  The
+// coordinates arrive already scaled by 1/gamma, as in
+// pallas_gram_matvec.gram_matmat.
 //
 // What bounds it on an H100: per (i, j) pair 2d f32 operations and one or
 // two special functions for the entry, and 2r for the product with V's row
@@ -53,6 +57,9 @@
 //     a fresh accumulator (scale-d = 0 on its first wgmma) and added in f32
 //     to a per-thread total in shared memory, which the epilogue writes
 //     once, ragged rows and columns masked.
+// A block owns one 128-column slab, so at r > 128 every slab's blocks
+// compute the same Gram entries again: r = 576 (the ARD trace term's
+// probes (2d + 1) at d = 4, 64 probes) computes each entry five times.
 // No atomics and a fixed order, so a rerun gives the same bits.  Ragged n,
 // m, r and d are masked, not padded; any d: two stages of y tiles of up to
 // YSTAGE features fit the block's 227 KB of shared memory beside the totals.
@@ -413,7 +420,7 @@ int launch(const float* x, const float* yt, const float* vth, const float* vtl, 
 extern "C" int stpy_gram_matmat(const float* x, const float* y, const float* V, float* out,
                                 float* vth, float* vtl, float* yt, int n, int m, int d, int r,
                                 float kappa, int shape, void* stream) {
-  if (n <= 0 || m <= 0 || r <= 0 || d <= 0 || shape < 0 || shape > 3)
+  if (n <= 0 || m <= 0 || r <= 0 || d <= 0 || shape < 0 || shape >= SHAPE_COUNT)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int mt = (m + TK - 1) / TK;
@@ -421,10 +428,9 @@ extern "C" int stpy_gram_matmat(const float* x, const float* y, const float* V, 
   pad_y_kernel<<<mt, TK, 0, s>>>(y, yt, m, d);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  switch (shape) {
-    case 0: return launch<0>(x, yt, vth, vtl, out, n, m, d, r, mt, kappa, s);
-    case 1: return launch<1>(x, yt, vth, vtl, out, n, m, d, r, mt, kappa, s);
-    case 2: return launch<2>(x, yt, vth, vtl, out, n, m, d, r, mt, kappa, s);
-    default: return launch<3>(x, yt, vth, vtl, out, n, m, d, r, mt, kappa, s);
-  }
+  int status = static_cast<int>(cudaErrorInvalidValue);
+  dispatch_shape(shape, [&](auto code) {
+    status = launch<decltype(code)::value>(x, yt, vth, vtl, out, n, m, d, r, mt, kappa, s);
+  });
+  return status;
 }

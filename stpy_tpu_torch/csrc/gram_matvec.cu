@@ -2,9 +2,11 @@
 // with K never stored.
 //
 // Replaces stpy_tpu/ops/pallas_gram_matvec.py:_gram_matvec_kernel (the
-// pallas_call in _gram_matvec_pallas), shape "k".  The coordinates arrive
-// already scaled by 1/gamma (scalar or per-dimension), as in
-// pallas_gram_matvec.gram_matvec.
+// pallas_call in _gram_matvec_pallas) in all three of its shapes (_SHAPES):
+// the kernel "k", and the derivative shapes "dk_sq" = k'(sq) sq (the
+// lengthscale gradient) and "dk" = k'(sq) (ARD and coordinate cotangents),
+// codes 0-11 of gram_shape.cuh.  The coordinates arrive already scaled by
+// 1/gamma (scalar or per-dimension), as in pallas_gram_matvec.gram_matvec.
 //
 // What bounds it on an H100: operations.  Per (i, j) pair d FMAs of the dot
 // product, the squared distance from the norms (an add, an FMA, a max), the
@@ -29,10 +31,13 @@
 //     Features past 16 are read from x and y in global memory (the cache
 //     serves them), so any d > 0 is taken.
 //   * The shape is shape_exp2 (gram_shape.cuh): the constant folded into a
-//     base-2 exponent on MUFU.EX2, the square root on MUFU.SQRT.
+//     base-2 exponent on MUFU.EX2, the square root on MUFU.SQRT.  The
+//     derivative shapes add an FMUL or two (Matern-1/2's "dk" an IEEE
+//     division) to the same loop: one template instance per code.
 //   * The norms and the dot come from one FMA chain in ascending features
 //     (zero features add nothing), so where x_i == y_j sq is exactly 0 and
-//     the diagonal term of K(x, x) v is exactly kappa v_i.
+//     the diagonal term of K(x, x) v is exactly kappa v_i (kappa k'(0) v_i
+//     for "dk", 0 for "dk_sq").
 // Each thread sums its rows over its range's points in ascending order, in
 // f32.  Where the rows alone give fewer blocks than the card holds, the
 // points are split into ranges (`plan`: the count that needs the fewest
@@ -262,7 +267,7 @@ extern "C" long long stpy_gram_matvec_scratch(int n, int m, int d) {
 extern "C" int stpy_gram_matvec(const float* x, const float* y, const float* v, float* out,
                                 float* scratch, int n, int m, int d, float kappa, int shape,
                                 void* stream) {
-  if (n <= 0 || m <= 0 || d <= 0 || shape < 0 || shape > 3)
+  if (n <= 0 || m <= 0 || d <= 0 || shape < 0 || shape >= SHAPE_COUNT)
     return static_cast<int>(cudaErrorInvalidValue);
   Plan p;
   if (int err = plan(n, m, d, &p)) return err;
@@ -271,12 +276,9 @@ extern "C" int stpy_gram_matvec(const float* x, const float* y, const float* v, 
   float* part = scratch + p.head_floats;
   const int padded = p.tiles * TJ;
   pad_points_kernel<<<(padded + 255) / 256, 256, 0, s>>>(y, v, yh, m, d, p.dp, padded);
-  switch (shape) {
-    case 0: launch_shape<0>(p, x, y, yh, out, part, n, m, d, kappa, s); break;
-    case 1: launch_shape<1>(p, x, y, yh, out, part, n, m, d, kappa, s); break;
-    case 2: launch_shape<2>(p, x, y, yh, out, part, n, m, d, kappa, s); break;
-    default: launch_shape<3>(p, x, y, yh, out, part, n, m, d, kappa, s); break;
-  }
+  dispatch_shape(shape, [&](auto code) {
+    launch_shape<decltype(code)::value>(p, x, y, yh, out, part, n, m, d, kappa, s);
+  });
   if (p.ranges > 1)
     matvec_reduce_kernel<<<(n + 255) / 256, 256, 0, s>>>(part, p.ranges, n, kappa, out);
   return static_cast<int>(cudaGetLastError());

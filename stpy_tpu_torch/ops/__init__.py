@@ -4,6 +4,8 @@ Each kernel has a wrapper that launches it for CUDA tensors (or raises) and
 runs its plain PyTorch version, in the same module, for CPU tensors. A
 wrapper adds one to its ``launches`` attribute each time it launches its
 kernel and nowhere else, so a run can show that it went through the kernels.
+The matrix-free products count their derivative shapes apart, in
+``shape_launches`` ("dk_sq", "dk"; ``launches`` counts the shape "k").
 """
 
 from __future__ import annotations
@@ -34,12 +36,21 @@ def kernel_wrappers() -> dict:
 
 
 def launch_counts() -> dict:
-    return {name: w.launches for name, w in kernel_wrappers().items()}
+    """name -> launches; a wrapper's derivative shapes as "name[shape]"."""
+    counts = {}
+    for name, w in kernel_wrappers().items():
+        counts[name] = w.launches
+        for shape, c in getattr(w, "shape_launches", {}).items():
+            counts[f"{name}[{shape}]"] = c
+    return counts
 
 
 def reset_launch_counts() -> None:
     for w in kernel_wrappers().values():
         w.launches = 0
+        shapes = getattr(w, "shape_launches", {})
+        for shape in shapes:
+            shapes[shape] = 0
 
 
 def check_cuda_inputs(name: str, dtype: torch.dtype, *tensors) -> None:
@@ -53,6 +64,8 @@ def check_cuda_inputs(name: str, dtype: torch.dtype, *tensors) -> None:
             raise TypeError(f"{name}: the CUDA kernel takes {dtype}, got {t.dtype}")
         if t.requires_grad:
             raise RuntimeError(
-                f"{name}: the CUDA kernel has no backward yet (hyperparameter "
-                "fitting, ROADMAP Queue 1 item 5); detach the inputs"
+                f"{name}: the CUDA kernel has no backward yet (the Gram "
+                "kernels' backward is ROADMAP Queue 1 item 5; the matrix-free "
+                "products differentiate through ops.gram_matvec.gram_matvec); "
+                "detach the inputs"
             )

@@ -22,19 +22,27 @@ SHAPE_CODES = {
     ("matern", 1.5): 2,
     ("matern", 2.5): 3,
 }
+# the shape functions of the matrix-free products (csrc/gram_matvec.cu,
+# csrc/gram_matmat.cu), as stpy_tpu/ops/pallas_gram_matvec.py:_SHAPES: the
+# kernel k(sq), k'(sq)·sq and k'(sq). A shape's code is its family's code
+# plus 4 times its index here (csrc/gram_shape.cuh); the other kernels take
+# "k" only.
+SHAPES = ("k", "dk_sq", "dk")
 
 # distance eps: keeps sqrt finite at coincident points (as pallas_gram._EPS)
 _EPS = 1e-30
 
 
-def shape_code(family: str, nu: float) -> int:
+def shape_code(family: str, nu: float, shape: str = "k") -> int:
     key = (family, None if family == "se" else float(nu))
     if key not in SHAPE_CODES:
         raise NotImplementedError(
             f"fused Gram for family={family!r}, nu={nu}: only SE and Matérn "
             "nu in (0.5, 1.5, 2.5) are fused (ROADMAP Queue 1 item 7)"
         )
-    return SHAPE_CODES[key]
+    if shape not in SHAPES:
+        raise ValueError(f"shape={shape!r}: not one of {SHAPES}")
+    return SHAPE_CODES[key] + len(SHAPE_CODES) * SHAPES.index(shape)
 
 
 def gram_plain(xs, ys, kappa, family="se", nu=1.5):

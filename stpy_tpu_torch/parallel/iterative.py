@@ -14,12 +14,14 @@ tensors that reads one scalar to the host per iteration (the loop test), and
 iterates are the JAX package's: the same stagnation rule, halving
 checkpoint, frozen columns, segment restarts and best-iterate return.
 
-Not ported yet, each raising NotImplementedError naming its ROADMAP item:
-the mesh tiers (``mesh`` other than None, Queue 1 item 11), the matrix-free
-hyperparameter fit `optimize_params` (bbmm, Queue 1 items 5 and 11),
-`sample_pathwise` (feature embeddings, Queue 1 item 8) and the double tier's
-df-refined variance at ``var_refine >= 1`` (`_std_exact_df`, which needs
-`compensated.df_gemm`, Queue 1 item 4).
+`optimize_params` fits the hyperparameters of a sum of fused atoms on the
+matrix-free evidence (parallel/bbmm.py). Not ported yet, each raising
+NotImplementedError naming its ROADMAP item: the mesh tiers (``mesh``
+other than None, Queue 1 item 11), `optimize_params` for any other kernel
+(bbmm's general tier, Queue 1 item 5), `sample_pathwise` (feature
+embeddings, Queue 1 item 8) and the double tier's df-refined variance at
+``var_refine >= 1`` (`_std_exact_df`, which needs `compensated.df_gemm`,
+Queue 1 item 4).
 """
 
 from __future__ import annotations
@@ -28,7 +30,7 @@ import warnings
 
 import torch
 
-from stpy_tpu_torch.config import as_tensor
+from stpy_tpu_torch.config import as_tensor, resolve_device
 from stpy_tpu_torch.kernels.df_plan import df_atom_desc, df_gram_from_desc
 from stpy_tpu_torch.ops.gemv_df import gemv_df
 from stpy_tpu_torch.parallel.lazy_kernel import (
@@ -345,6 +347,23 @@ def rayleigh_nystrom_precond(C, matmat, noise, *, block=128):
         C, _blocked_k_apply(matmat, noise, block), noise)
 
 
+def randomized_eig_precond(matmat, n, rank, noise, generator=None, *,
+                           block=128, dtype=torch.float32, device=None):
+    """Two-pass randomized EVD preconditioner from a Gaussian sketch:
+    Y = K·Ω, then the Rayleigh compression (`_rayleigh_compress_precond`).
+    Purely matrix-free (no kernel columns), but on slowly decaying spectra
+    a Gaussian range needs more rank than landmark columns for the same CG
+    coverage (stpy_tpu/parallel/iterative.py:411-433): prefer
+    `rayleigh_nystrom_precond` where kernel columns exist. `matmat`
+    computes (K + σ²I)·V; Ω (n, rank) is drawn on the CPU from `generator`
+    (default: a fresh one seeded with 0) and moved to `device`."""
+    r = int(min(rank, n))
+    g = generator if generator is not None else torch.Generator().manual_seed(0)
+    Om = torch.randn((n, r), generator=g, dtype=dtype).to(resolve_device(device))
+    k_apply = _blocked_k_apply(matmat, noise, block)
+    return _rayleigh_compress_precond(k_apply(Om), k_apply, noise)
+
+
 def nystrom_precond_from_cross(C, idx, noise, shift=1e-5):
     """Randomized-Nyström preconditioner from a landmark cross Gram
     C = K[:, idx] (n, r): (C K[idx, idx]⁺ Cᵀ + σ²I)⁻¹, the pseudo-inverse's
@@ -643,12 +662,72 @@ class IterativeGP:
         var = torch.clamp(kss - est, min=1e-12)
         return mu, torch.sqrt(var)[:, None]
 
-    # -- not ported yet ------------------------------------------------------
-    def optimize_params(self, *args, **kwargs):
-        raise NotImplementedError(
-            "the matrix-free evidence fit (parallel/bbmm.py) is ROADMAP "
-            "Queue 1 items 5 and 11")
+    # -- hyperparameters --------------------------------------------------
+    def optimize_params(self, optimize=("gamma", "noise"), steps=30, lr=0.1,
+                        probes=64, tol=1e-2, seed=0, verbose=False,
+                        refit=True, **kwargs):
+        """Hyperparameter fit on the matrix-free evidence
+        (`bbmm.fit_evidence_sum`), the large-n counterpart of
+        GaussianProcess.optimize_params, for kernels that are sums of fused
+        atoms (SE / ARD / Matérn, `k1 + k2`, coordinate groups): per atom
+        (γ_a, κ_a), ARD vectors fitted per dim. Writes the fitted values
+        back into `kernel_object.params_dict` (an ARD atom on a group
+        scatters its vector into the group's entries), `self.s` when
+        "noise" is optimized, and refits. The preconditioner rank is the
+        model's, resolved for n (`resolve_precond_rank`), unless
+        `precond_rank` is passed. Any other kernel raises: its evidence fit
+        autodiffs through the row-chunked Gram (ROADMAP Queue 1 item 5).
+        Requires fit_gp (uses the stored x, y)."""
+        from stpy_tpu_torch.parallel.bbmm import fit_evidence_sum
 
+        if getattr(self, "x", None) is None:
+            raise RuntimeError("call fit_gp before optimize_params")
+        ko = self.kernel_object
+        atoms = fast_atoms(ko)
+        if atoms is None:
+            raise NotImplementedError(
+                "optimize_params for a kernel that is not a sum of fused "
+                "atoms autodiffs through the row-chunked Gram and needs the "
+                "Gram kernels' backward, ROADMAP Queue 1 item 5")
+        kwargs.setdefault("precond_rank", resolve_precond_rank(
+            self.precond_rank, int(self.x.shape[0])))
+        desc = tuple((a.family, a.nu, a.group) for a in atoms)
+        gk = [atom_params(ko, a) for a in atoms]
+        out = fit_evidence_sum(
+            self.x, self.y.reshape(-1), desc, [g for g, _ in gk],
+            [k for _, k in gk], float(self.s), optimize=optimize, steps=steps,
+            lr=lr, probes=probes, tol=tol, seed=seed, verbose=verbose,
+            **kwargs)
+        for a, g_new, k_new in zip(atoms, out["gammas"], out["kappas"]):
+            p = ko.params_dict[str(a.index)]
+            if "gamma" in optimize:
+                stored = p[a.gamma_key]
+                g_fit = torch.as_tensor(g_new, dtype=stored.dtype,
+                                        device=stored.device).reshape(-1)
+                if a.gamma_key == "ard_gamma":
+                    stored = stored.reshape(-1).clone()
+                    if a.group is not None:
+                        # scatter the fitted slice into the full-d vector
+                        stored[torch.as_tensor(a.group, device=stored.device)] \
+                            = g_fit.expand(len(a.group))
+                    else:
+                        stored = g_fit.expand(stored.shape).clone()
+                    p[a.gamma_key] = stored
+                else:
+                    p[a.gamma_key] = g_fit.reshape(())
+            if "kappa" in optimize:
+                p["kappa"] = torch.as_tensor(k_new, dtype=torch.float64,
+                                             device=self.device)
+        if "noise" in optimize:
+            self.s = out["noise"]
+        if len(atoms) == 1:  # single-atom aliases
+            out = {**out, "gamma": out["gammas"][0],
+                   "kappa": out["kappas"][0]}
+        if refit:
+            self.fit_gp(self.x, self.y)
+        return out
+
+    # -- not ported yet ------------------------------------------------------
     def sample_pathwise(self, *args, **kwargs):
         raise NotImplementedError(
             "pathwise sampling needs the feature embeddings, ROADMAP Queue 1 "

@@ -328,5 +328,7 @@ def test_cpu_tensors_leave_every_launch_counter_at_zero(data):
                 **kw).fit_predict(x, y, xt)
     assert launch_counts() == before == {
         "gram": 0, "gram_df": 0, "gemv_df": 0, "qform_df": 0, "gram_l1": 0,
-        "gram_matvec": 0, "gram_matmat": 0, "syrk_lower": 0, "chol_leaf": 0,
-        "gram_df_stages": 0, "gram_df[stage]": 0}
+        "gram_matvec": 0, "gram_matvec[dk_sq]": 0, "gram_matvec[dk]": 0,
+        "gram_matmat": 0, "gram_matmat[dk_sq]": 0, "gram_matmat[dk]": 0,
+        "syrk_lower": 0, "chol_leaf": 0, "gram_df_stages": 0,
+        "gram_df[stage]": 0}

@@ -1,15 +1,18 @@
 """Port parity: the matrix-free Gram products of stpy_tpu_torch
-(ops/gram_matvec.py) against stpy_tpu/ops/pallas_gram_matvec.py, plus the
-port's import isolation.
+(ops/gram_matvec.py) against stpy_tpu/ops/pallas_gram_matvec.py, in the
+three shape functions of its kernels ("k", "dk_sq", "dk"), the custom VJP
+of `gram_matvec`, plus the port's import isolation.
 
 Inputs come from numpy with fixed seeds. On the CPU the port's wrappers run
 their plain PyTorch versions. Tolerances:
 * plain versions in float64 against the JAX package's jnp path in x64:
   1e-10 relative to the largest entry (both sum the same K·v in f64, in
-  other orders);
+  other orders); gradients of `gram_matvec` against `jax.grad` through
+  `_mv_ad`: 1e-10 relative to the largest entry of each, the same
+  products in other orders;
 * the plain version in f32 against the Pallas kernel body run in interpret
   mode: 1e-4 absolute, the bound tests/test_parallel.py holds that body to
-  against a dense f64 product.
+  against a dense f64 product, in every shape.
 """
 
 import subprocess
@@ -20,12 +23,16 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from stpy_tpu.ops import pallas_gram_matvec as jax_mv
+from stpy_tpu_torch.ops import gram_matvec as port_mv
 from stpy_tpu_torch.ops import kernel_wrappers, launch_counts
-from stpy_tpu_torch.ops.gram import gram_plain
+from stpy_tpu_torch.ops.gram import SHAPE_CODES, gram_plain, shape_code
+from stpy_tpu_torch.ops.gram import SHAPES as SHAPES_OF_KERNELS
 from stpy_tpu_torch.ops.gram_matvec import (
+    deriv_shape_plain,
     gram_matmat,
     gram_matmat_scaled,
     gram_matvec,
@@ -52,6 +59,8 @@ FAMILIES = [
 IDS = ["se", "matern12", "matern32", "matern52", "ard_se", "ard_matern32"]
 # ragged n, m, r: no multiple of any tile of either package
 SHAPES = [(37, 53, 5), (130, 61, 3)]
+# the kernels' shape functions: k, k'(sq)·sq and k'(sq)
+KINDS = list(SHAPES_OF_KERNELS)
 
 
 def rel_err(got, want):
@@ -69,30 +78,44 @@ def torch_gamma(gamma):
     return torch.as_tensor(np.asarray(gamma), dtype=torch.float64)
 
 
+@pytest.mark.parametrize("kind", KINDS)
 @pytest.mark.parametrize("shape", SHAPES)
 @pytest.mark.parametrize("family,nu,gamma", FAMILIES, ids=IDS)
-def test_gram_matvec_matches_jax(family, nu, gamma, shape):
+def test_gram_matvec_matches_jax(family, nu, gamma, shape, kind):
     x, y, v, _ = operands(*shape)
-    want = jax_mv.gram_matvec(jnp.asarray(x), jnp.asarray(y), jnp.asarray(v),
-                              family=family, gamma=jnp.asarray(gamma),
-                              kappa=1.3, nu=nu)
-    got = gram_matvec(torch.as_tensor(x), torch.as_tensor(y),
-                      torch.as_tensor(v), family=family,
-                      gamma=torch_gamma(gamma), kappa=1.3, nu=nu)
+    xj, yj, vj, gj = (jnp.asarray(a) for a in (x, y, v, gamma))
+    xt, yt, vt, gt = (torch.as_tensor(np.asarray(a)) for a in (x, y, v, gamma))
+    if kind == "k":
+        want = jax_mv.gram_matvec(xj, yj, vj, family=family, gamma=gj,
+                                  kappa=1.3, nu=nu)
+        got = gram_matvec(xt, yt, vt, family=family, gamma=gt, kappa=1.3,
+                          nu=nu)
+    else:
+        want = jax_mv._mv_scaled(xj / gj, yj / gj, vj, 1.3, family, nu,
+                                 shape=kind)
+        got = gram_matvec_scaled(xt / gt, yt / gt, vt, 1.3, family, nu, kind)
+    if kind == "dk_sq":
+        # the public form of the lengthscale-gradient product
+        public = jax_mv.gram_matvec(xj, yj, vj, family=family, gamma=gj,
+                                    kappa=1.3, nu=nu, deriv=True)
+        assert rel_err(public, want) <= RTOL
+        assert torch.equal(gram_matvec(xt, yt, vt, family=family, gamma=gt,
+                                       kappa=1.3, nu=nu, deriv=True), got)
     assert got.shape == (shape[0],) and got.dtype == torch.float64
     assert rel_err(got.numpy(), want) <= RTOL
 
 
+@pytest.mark.parametrize("kind", KINDS)
 @pytest.mark.parametrize("shape", SHAPES)
 @pytest.mark.parametrize("family,nu,gamma", FAMILIES, ids=IDS)
-def test_gram_matmat_matches_jax(family, nu, gamma, shape):
+def test_gram_matmat_matches_jax(family, nu, gamma, shape, kind):
     x, y, _, V = operands(*shape)
     want = jax_mv.gram_matmat(jnp.asarray(x), jnp.asarray(y), jnp.asarray(V),
                               family=family, gamma=jnp.asarray(gamma),
-                              kappa=0.8, nu=nu)
+                              kappa=0.8, nu=nu, shape=kind)
     got = gram_matmat(torch.as_tensor(x), torch.as_tensor(y),
                       torch.as_tensor(V), family=family,
-                      gamma=torch_gamma(gamma), kappa=0.8, nu=nu)
+                      gamma=torch_gamma(gamma), kappa=0.8, nu=nu, shape=kind)
     assert got.shape == (shape[0], shape[2])
     assert rel_err(got.numpy(), want) <= RTOL
 
@@ -115,28 +138,30 @@ def _pallas_operands(n, m, r, family, gamma):
     return [a.astype(np.float32) for a in (xs, ys, v, V)]
 
 
+@pytest.mark.parametrize("kind", KINDS)
 @pytest.mark.parametrize("family,nu,gamma", FAMILIES, ids=IDS)
 def test_f32_matvec_matches_the_jax_pallas_kernel_in_interpret_mode(
-        family, nu, gamma):
+        family, nu, gamma, kind):
     xs, ys, v, _ = _pallas_operands(21, 150, 1, family, gamma)
     want = jax_mv._gram_matvec_pallas(
         jnp.asarray(xs), jnp.asarray(ys), jnp.asarray(v), 1.3, family=family,
-        nu=float(nu), block_m=8, block_n=128, interpret=True)
+        nu=float(nu), block_m=8, block_n=128, interpret=True, shape=kind)
     got = gram_matvec_scaled(torch.as_tensor(xs), torch.as_tensor(ys),
-                             torch.as_tensor(v), 1.3, family, nu)
+                             torch.as_tensor(v), 1.3, family, nu, kind)
     assert got.dtype == torch.float32
     assert np.max(np.abs(got.numpy() - np.asarray(want))) <= PALLAS_ATOL
 
 
+@pytest.mark.parametrize("kind", KINDS)
 @pytest.mark.parametrize("family,nu,gamma", FAMILIES[:4], ids=IDS[:4])
 def test_f32_matmat_matches_the_jax_pallas_kernel_in_interpret_mode(
-        family, nu, gamma):
+        family, nu, gamma, kind):
     xs, ys, _, V = _pallas_operands(21, 150, 5, family, gamma)
     want = jax_mv._gram_matmat_pallas(
         jnp.asarray(xs), jnp.asarray(ys), jnp.asarray(V), 0.8, family=family,
-        nu=float(nu), block_m=8, block_n=128, interpret=True)
+        nu=float(nu), block_m=8, block_n=128, interpret=True, shape=kind)
     got = gram_matmat_scaled(torch.as_tensor(xs), torch.as_tensor(ys),
-                             torch.as_tensor(V), 0.8, family, nu)
+                             torch.as_tensor(V), 0.8, family, nu, kind)
     assert got.shape == (21, 5) and got.dtype == torch.float32
     assert np.max(np.abs(got.numpy() - np.asarray(want))) <= PALLAS_ATOL
 
@@ -272,12 +297,13 @@ def _sqrt(a):
     return np.where(a == 0, np.float32(0), _ulps_up(r, 1))
 
 
-def emulate_gram_matvec(xs, ys, v, kappa, family, nu):
+def emulate_gram_matvec(xs, ys, v, kappa, family, nu, kind="k"):
     """csrc/gram_matvec.cu's arithmetic in f32: the norms and dots by one
     fmaf chain over ascending features, sq = max(|x|² + |y|² − 2x·y, 0),
     gram_shape.cuh's shape_exp2 (the constant folded into an f32 exponent
-    of base 2), each term fmaf'd into its row's sum in ascending j (one
-    range: the longest f32 chain the kernel runs). Returns (out, sq, K)."""
+    of base 2) in the shape function `kind`, each term fmaf'd into its
+    row's sum in ascending j (one range: the longest f32 chain the kernel
+    runs). Returns (out, sq, K)."""
     f32 = np.float32
     nx = np.zeros(xs.shape[0], f32)
     ny = np.zeros(ys.shape[0], f32)
@@ -290,54 +316,79 @@ def emulate_gram_matvec(xs, ys, v, kappa, family, nu):
     sq = np.maximum((np.float64(t) - 2.0 * np.float64(dot)).astype(f32), f32(0))
     if family == "se":
         K = _ex2((f32(-0.5) * LOG2E * sq).astype(f32))
+        if kind == "dk_sq":
+            K = ((f32(-0.5) * sq).astype(f32) * K).astype(f32)
+        elif kind == "dk":
+            K = (f32(-0.5) * K).astype(f32)
     else:
         r = _sqrt(sq)
         c = {0.5: f32(1), 1.5: f32(1.7320508075688772),
              2.5: f32(2.23606797749979)}[nu]
         e = _ex2(((-c * LOG2E).astype(f32) * r).astype(f32))
         k = (c * r).astype(f32)
-        if nu == 0.5:
+        if kind == "k" and nu == 0.5:
             K = e
-        elif nu == 1.5:
+        elif kind == "k" and nu == 1.5:
             K = _fma32(k, e, e)
-        else:
+        elif kind == "k":
             poly = _fma32(_fma32(k, f32(1.0 / 3.0), f32(1)), k, f32(1))
             K = (poly * e).astype(f32)
+        elif nu == 0.5 and kind == "dk_sq":
+            K = ((f32(-0.5) * r).astype(f32) * e).astype(f32)
+        elif nu == 0.5:
+            K = ((f32(-0.5) * e).astype(f32) / np.maximum(r, f32(1e-6))).astype(f32)
+        elif nu == 1.5:
+            K = (f32(-1.5) * (sq if kind == "dk_sq" else f32(1))).astype(f32)
+            K = (K * e).astype(f32)
+        else:
+            K = ((f32(-5.0 / 6.0) * _fma32(c, r, f32(1))).astype(f32) * e).astype(f32)
+            if kind == "dk_sq":
+                K = (K * sq).astype(f32)
     acc = np.zeros(xs.shape[0], f32)
     for j in range(ys.shape[0]):
         acc = _fma32(K[:, j], v[j], acc)
     return (f32(kappa) * acc).astype(f32), sq, K
 
 
+# k'(0) of each family: the "dk" entry of a point against itself (Matérn-½
+# through the clamp max(r, 1e-6) of _pshape_fn)
+DK_AT_0 = {("se", 1.5): -0.5, ("matern", 0.5): -0.5 / np.float32(1e-6),
+           ("matern", 1.5): -1.5, ("matern", 2.5): -5.0 / 6.0}
+
+
+@pytest.mark.parametrize("kind", KINDS)
 @pytest.mark.parametrize("n,m,d", EMULATED_SHAPES,
                          ids=[f"{n}x{m}_d{d}" for n, m, d in EMULATED_SHAPES])
 @pytest.mark.parametrize("family,nu,gamma", EMULATED,
                          ids=["se", "matern12", "matern32", "matern52"])
 def test_base2_shapes_hold_the_card_kernels_f32_bar(family, nu, gamma, n, m,
-                                                     d):
+                                                     d, kind):
     """csrc/gram_matvec.cu's arithmetic, emulated (`emulate_gram_matvec`,
     MUFU.EX2 2 ulps off, MUFU.SQRT 1): held, as chip_smoke.py holds the
     kernel, to 2·√m·eps32 of Σⱼ|Kᵢⱼ||vⱼ| against the JAX package's float64
-    gram_matvec on the same f32 inputs. Where y_j is a copy of x_i, sq is
-    exactly 0 and the entry exactly 1, so K(x, x)'s diagonal is exactly κ."""
+    matvec in the same shape function on the same f32 inputs. Where y_j is
+    a copy of x_i, sq is exactly 0 and the entry exact: 1 for "k" (so
+    K(x, x)'s diagonal is exactly κ), 0 for "dk_sq" and k'(0) for "dk"."""
     rng = np.random.default_rng(14)
     spread = np.sqrt(8.0 / d) if d > 8 else 1.0
     xs = (rng.uniform(-1, 1, (n, d)) * spread / gamma).astype(np.float32)
     ys = (rng.uniform(-1, 1, (m, d)) * spread / gamma).astype(np.float32)
     ys[::7][:n] = xs[:len(ys[::7])]          # every 7th point a copy of an x
     v = rng.standard_normal(m).astype(np.float32)
-    got, sq, K = emulate_gram_matvec(xs, ys, v, 1.3, family, nu)
-    kw = dict(family=family, gamma=1.0, kappa=1.3, nu=nu)
+    got, sq, K = emulate_gram_matvec(xs, ys, v, 1.3, family, nu, kind)
     x64, y64 = jnp.asarray(xs, jnp.float64), jnp.asarray(ys, jnp.float64)
-    ref = np.asarray(jax_mv.gram_matvec(x64, y64, jnp.asarray(v, jnp.float64),
-                                        **kw))
-    scale = np.asarray(jax_mv.gram_matvec(
-        x64, y64, jnp.asarray(np.abs(v), jnp.float64), **kw))
+    ref = np.asarray(jax_mv._mv_scaled(x64, y64, jnp.asarray(v, jnp.float64),
+                                       1.3, family, nu, shape=kind))
+    scale = np.abs(np.asarray(jax_mv._mv_scaled(
+        x64, y64, jnp.asarray(np.abs(v), jnp.float64), 1.3, family, nu,
+        shape=kind)))
     bar = 2.0 * np.sqrt(m) * 2.0 ** -23
     assert float(np.max(np.abs(np.float64(got) - ref) / scale)) <= bar
     copies = np.arange(0, m, 7)[:n]
     rows = np.arange(len(copies))
-    assert np.all(sq[rows, copies] == 0) and np.all(K[rows, copies] == 1)
+    diag = {"k": 1.0, "dk_sq": 0.0}.get(kind, DK_AT_0[(family, nu)])
+    assert np.all(sq[rows, copies] == 0)
+    assert np.all(K[rows, copies] == np.float32(diag))
 
 
 class _FakeCuda(torch.Tensor):
@@ -372,20 +423,127 @@ def test_cuda_wrappers_take_f32_only(wrapper):
 
 
 def test_derivative_shapes_raise_naming_the_roadmap():
+    """The derivative shapes exist for the fused families (held to the JAX
+    package above); for a family without a fused kernel they raise naming
+    the ROADMAP item that holds it, as the shape "k" does."""
     x, y, v, V = (torch.as_tensor(a) for a in operands(6, 5, 2))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        gram_matvec(x, y, v, deriv=True)
-    for shape in ("dk", "dk_sq"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-            gram_matmat(x, y, V, shape=shape)
+    for kind in ("dk", "dk_sq"):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+            gram_matmat(x, y, V, family="matern", nu=3.5, shape=kind)
+        with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+            gram_matvec_scaled(x, y, v, 1.0, "matern", 3.5, kind)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+        gram_matvec(x, y, v, family="matern", nu=3.5, deriv=True)
+    with pytest.raises(ValueError, match="not one of"):
+        gram_matmat(x, y, V, shape="d2k")
+    want = jax_mv.gram_matvec(*(jnp.asarray(np.asarray(a)) for a in (x, y, v)),
+                              gamma=0.7, deriv=True)
+    assert rel_err(gram_matvec(x, y, v, gamma=0.7, deriv=True).numpy(),
+                   want) <= RTOL
+
+
+def test_shape_codes_are_one_code_space_with_the_kernels_switch():
+    """ops/gram.py's codes are the CUDA sources': code = family + 4·kind,
+    12 codes (gram_shape.cuh's SHAPE_COUNT, the bound both products'
+    entry points check); decoding a code as the kernels do gives the JAX
+    package's shape function, checked on a grid of sq from 0."""
+    header = (REPO / "stpy_tpu_torch/csrc/gram_shape.cuh").read_text()
+    assert "constexpr int SHAPE_KINDS = 3;" in header
+    assert "constexpr int SHAPE_COUNT = 4 * SHAPE_KINDS;" in header
+    assert "FAMILY = SHAPE % 4, KIND = SHAPE / 4" in header
+    for src in ("gram_matvec.cu", "gram_matmat.cu"):
+        text = (REPO / "stpy_tpu_torch/csrc" / src).read_text()
+        assert "shape >= SHAPE_COUNT" in text, src
+    family_of = {code: key for key, code in SHAPE_CODES.items()}
+    sq = jnp.asarray(np.concatenate([[0.0], np.geomspace(1e-12, 50.0, 40)]))
+    codes = set()
+    for (family, nu), base in SHAPE_CODES.items():
+        nu = 1.5 if nu is None else nu
+        for kind in KINDS:
+            code = shape_code(family, nu, kind)
+            codes.add(code)
+            fam_d, nu_d = family_of[code % 4]
+            kind_d = KINDS[code // 4]
+            assert (fam_d, kind_d) == (family, kind) and code % 4 == base
+            want = jax_mv._SHAPES[kind](family, nu)(sq)
+            sq_t = torch.as_tensor(np.array(sq))
+            # "k" through the Gram's plain version at distances √sq from 0
+            got = (deriv_shape_plain(sq_t, fam_d, nu, kind_d) if kind != "k"
+                   else gram_plain(torch.sqrt(sq_t)[:, None],
+                                   torch.zeros(1, 1, dtype=torch.float64),
+                                   1.0, fam_d, nu)[:, 0])
+            assert rel_err(got.numpy(), want) <= RTOL, (family, nu, kind)
+    assert codes == set(range(12))
+
+
+@pytest.mark.parametrize("family,nu,gamma", [
+    ("se", 1.0, 0.7), ("matern", 1.5, 1.1), ("matern", 0.5, 0.9),
+    ("se", 1.0, [0.5, 0.8, 1.1]), ("matern", 2.5, [1.2, 0.7, 0.9])],
+    ids=["se", "matern32", "matern12", "ard_se", "ard_matern52"])
+def test_gram_matvec_gradients_match_jax_grad_of_mv_ad(family, nu, gamma):
+    """torch.autograd through `_GramMatvec` against jax.grad through the
+    JAX package's custom VJP `_mv_ad`, float64: the cotangents of x, y, v,
+    γ (scalar or ARD) and κ of the loss wᵀK(x, y)v."""
+    x, y, v, _ = operands(37, 53, 1, seed=21)
+    w = np.random.default_rng(22).standard_normal(37)
+
+    def jloss(x, y, v, g, k):
+        return jnp.asarray(w) @ jax_mv.gram_matvec(x, y, v, family=family,
+                                                   gamma=g, kappa=k, nu=nu)
+
+    args = (x, y, v, np.asarray(gamma, np.float64), 1.3)
+    want = jax.grad(jloss, argnums=(0, 1, 2, 3, 4))(
+        *(jnp.asarray(a) for a in args))
+    ts = [torch.as_tensor(np.asarray(a, np.float64)).requires_grad_()
+          for a in args]
+    loss = torch.as_tensor(w) @ gram_matvec(ts[0], ts[1], ts[2],
+                                            family=family, gamma=ts[3],
+                                            kappa=ts[4], nu=nu)
+    loss.backward()
+    for t, wj in zip(ts, want):
+        assert t.grad.shape == t.shape
+        assert rel_err(t.grad.numpy(), wj) <= RTOL
+
+
+def test_gradient_products_launch_the_kernel_on_detached_tensors(monkeypatch):
+    """`_GramMatvec` hands `gram_matvec_scaled` (the kernel's wrapper, whose
+    CUDA branch refuses tensors that require grad) detached tensors only,
+    in the shapes of `_mv_ad`'s backward: scalar γ one "dk_sq" product,
+    ARD γ and x̄ share 1 + d "dk" products and ȳ adds 1 + d more."""
+    calls = []
+    real = port_mv.gram_matvec_scaled
+
+    def recording(xs, ys, v, kappa, family="se", nu=1.5, shape="k"):
+        for t in (xs, ys, v, kappa):
+            assert not (isinstance(t, torch.Tensor) and t.requires_grad)
+        calls.append(shape)
+        return real(xs, ys, v, kappa, family, nu, shape)
+
+    monkeypatch.setattr(port_mv, "gram_matvec_scaled", recording)
+    x, y, v, _ = (torch.as_tensor(a) for a in operands(9, 7, 1, seed=23))
+    for gamma, want in ((0.8, {"k": 2, "dk_sq": 1, "dk": 8}),
+                        ([0.5, 0.8, 1.1], {"k": 2, "dk": 11})):
+        calls.clear()
+        ts = [t.clone().requires_grad_() for t in (x, y, v)]
+        g = torch.as_tensor(np.asarray(gamma)).requires_grad_()
+        k = torch.tensor(1.3, dtype=torch.float64, requires_grad=True)
+        gram_matvec(*ts, gamma=g, kappa=k).sum().backward()
+        assert {s: calls.count(s) for s in set(calls)} == want
+        assert all(t.grad is not None for t in (*ts, g, k))
 
 
 def test_cpu_products_launch_nothing_and_both_kernels_are_registered():
     assert {"gram_matvec", "gram_matmat"} <= set(kernel_wrappers())
+    # each derivative shape of both products is counted apart
+    assert {f"{name}[{kind}]" for name in ("gram_matvec", "gram_matmat")
+            for kind in ("dk_sq", "dk")} <= set(launch_counts())
     before = launch_counts()
     x, y, v, V = (torch.as_tensor(a) for a in operands(6, 5, 2))
-    gram_matvec(x, y, v)
-    gram_matmat(x, y, V)
+    for kind in KINDS:
+        gram_matvec_scaled(x, y, v, 1.0, shape=kind)
+        gram_matmat(x, y, V, shape=kind)
+    xg = x.clone().requires_grad_()
+    gram_matvec(xg, y, v).sum().backward()
     assert launch_counts() == before
 
 
