@@ -31,7 +31,8 @@ estimator's own spread, benchmarks/exp_lazy_hyperfit.py's full 65k fit,
 and IterativeGP.optimize_params on phase 9's GP, refitted to its float64
 residual. Phase 2c holds both matrix-free kernels in their derivative
 shapes ("dk_sq", "dk") too, and gram_matvec's backward against float64
-autograd. The launch counters, zeroed just before each tier's run and read
+autograd; phase 2d holds syrk_lower against its plain f32 version and
+against the model of its TF32 arithmetic (ops.syrk.split_tf32). The launch counters, zeroed just before each tier's run and read
 just after, show that each tier went through its kernels (the derivative
 shapes counted apart); every tier and every kernel is timed. With
 --profile it also traces one warm fit_predict of the single, double and
@@ -87,7 +88,7 @@ from stpy_tpu_torch.ops.gram_matvec import (
 )
 from stpy_tpu_torch.ops.qform_df import qform_df_plain, qform_refined_strip
 from stpy_tpu_torch.ops.syrk import (
-    _leaf_chol_, syrk_update_lower_, syrk_update_lower_plain_,
+    _leaf_chol_, split_tf32, syrk_update_lower_, syrk_update_lower_plain_,
 )
 from stpy_tpu_torch.parallel import (
     IterativeGP, evidence_value_and_grad_lazy, evidence_value_and_grad_sum,
@@ -295,12 +296,21 @@ LAZY_BIG_RANK = 2048
 # (a race between the grid's blocks shows as a rare bit difference).
 FAST_NB = 2048
 SYRK_RAGGED, SYRK_PROBE = (1000, 300), (N - FAST_NB, FAST_NB)
+# the fast factor's last (smallest) update, timed beside the probe: one
+# wave of tiles on the card, where the persistent loop's tail shows
+SYRK_TAIL = (FAST_NB, FAST_NB)
 LEAF_SIZES = (1024, 1000, 33)
 LEAF_REPEATS = 20
 # syrk_lower against its plain version (cuBLAS SGEMM) on the lower
 # triangle, error over (|W||W|ᵀ)ᵢⱼ: each side's f32 sum of k products errs
 # by at most k·2⁻²⁴ of it, the subtraction from T by one rounding more;
-# twice the sum of the two is the bar.
+# twice the sum of the two is the bar. The kernel's products are three
+# TF32 passes (ops.syrk.split_tf32), each off by a few 2⁻²² of |W_ip W_jp|
+# in either direction, so over k products their error grows as √k and
+# stays far under the bar at the probe's k; phase 2d prints the margin, and
+# holds the kernel at the same bar against the model of its own arithmetic
+# (the split, then the three products in float64), which leaves only its f32
+# sums.
 def syrk_rtol(k):
     return 4.0 * k * 2.0 ** -24
 
@@ -358,10 +368,11 @@ REPLACES = {
        for shape in ("dk_sq", "dk")},
 }
 # the device kernels phase 10 counts under a name, where not `<name>_kernel`:
-# gram_matmat's, gram_matvec's and qform_df's calls run their pre-passes
-# and, where they split the sums, their reductions too
+# gram_matmat's, gram_matvec's, qform_df's and syrk_lower's calls run their
+# pre-passes and, where they split the sums, their reductions too
 PROFILE_KERNELS = {"gram_matmat": ("gram_matmat_kernel", "split_v_kernel",
                                    "pad_y_kernel"),
+                   "syrk_lower": ("syrk_lower_kernel", "split_w_kernel"),
                    "gram_matvec": ("gram_matvec_kernel", "pad_points_kernel",
                                    "matvec_reduce_kernel"),
                    "qform_df": ("qform_df_kernel", "pack_a_kernel",
@@ -507,15 +518,16 @@ def qform_bound(c, n, t):
 
 
 def syrk_bound(m, k):
-    """syrk_lower: the lower half of T read and written once, W read once;
-    m(m+1)/2 entries times 2k f32 operations."""
+    """syrk_lower on the f32 pipes: the lower half of T read and written
+    once, W read once; m(m+1)/2 entries times 2k f32 operations."""
     return bound(4 * m * (m + 1) + 4 * m * k, m * (m + 1) * k, F32_FLOPS)
 
 
 def syrk_tc_bound(m, k):
-    """syrk_lower's bound on the yardstick of gram_matmat's: the same bytes,
-    the m(m+1)k operations in three TF32 passes on the tensor cores (the
-    3xTF32 split keeps f32 accuracy there), 3·m(m+1)k over TF32_FLOPS."""
+    """syrk_lower's bound as the kernel computes, on gram_matmat's
+    yardstick: the same bytes, the m(m+1)k operations in three TF32 passes
+    on the tensor cores (the 3xTF32 split keeps f32 accuracy there),
+    3·m(m+1)k over TF32_FLOPS."""
     return bound(4 * m * (m + 1) + 4 * m * k, 3 * m * (m + 1) * k, TF32_FLOPS)
 
 
@@ -650,6 +662,11 @@ def kernel_checks(dev):
                 times["gram"] = timed_pair(
                     lambda: gram_scaled(xs, ys, 1.0, fam, nu),
                     lambda: gram_plain(xs, ys, 1.0, fam, nu))
+                nbytes = 4 * (n + m) * d + 4 * n * m
+                print(f"  gram    bench  {fam:6s} {n}x{m} d={d}: kernel "
+                      f"{times['gram'][0]!r} ms, {nbytes / times['gram'][0] / 1e6!r}"
+                      f" GB/s of its compulsory bytes ({nbytes / HBM_BPS * 1e3!r}"
+                      f" ms at {HBM_BPS / 1e12} TB/s)")
                 times["gram_df"] = timed_pair(
                     lambda: gram_df_scaled(xs64, ys64, 1.0, fam, nu),
                     lambda: gram_df_plain(xs64, ys64, 1.0, fam, nu))
@@ -1209,6 +1226,21 @@ def syrk_error(T, W):
     return float(diff.max()), float(rel.max())
 
 
+def syrk_model_error(W):
+    """syrk_lower on a zero T (so the result is the negated product, with no
+    rounding of a sum with T) against the model of its arithmetic: W split
+    by `split_tf32`, hi·hiᵀ + hi·loᵀ + lo·hiᵀ in float64. Max |Δ| /
+    (|W||W|ᵀ)ᵢⱼ over the lower triangle: what is left is the kernel's f32
+    sums on the tensor cores and in its totals."""
+    diff = syrk_update_lower_(W.new_zeros((W.shape[0],) * 2), W).double()
+    hi, lo = (h.double() for h in split_tf32(W))
+    diff.addmm_(hi, hi.T).addmm_(hi, lo.T).addmm_(lo, hi.T)
+    del hi, lo
+    W64 = W.abs().double()
+    rel = diff.abs_().tril_().div_(W64 @ W64.T)
+    return float(rel.max())
+
+
 def chol_checks(dev, x):
     """Phase 2d: syrk_lower and chol_leaf against their plain versions. The
     update on a ragged strided view (m = 1000, k = 300, random operands;
@@ -1256,12 +1288,29 @@ def chol_checks(dev, x):
           f"{syrk_rtol(k)!r}), repeatable")
     assert rel <= syrk_rtol(k), ("syrk_lower", "probe", rel)
     err["syrk_lower"] = max(err["syrk_lower"], e)
+    model = syrk_model_error(W)
+    print(f"  syrk_lower probe against the model of its arithmetic (W split "
+          f"by split_tf32, three products in float64): max err / (|W||W|ᵀ) "
+          f"{model!r}, {model / syrk_rtol(k)!r} of the bar; against the plain "
+          f"f32 version {rel / syrk_rtol(k)!r} of it")
+    assert model <= syrk_rtol(k), ("syrk_lower", "model", model)
     scratch = T.clone()     # timed updates run in place, values drifting
     times["syrk_lower"] = timed_pair(lambda: syrk_update_lower_(scratch, W),
                                      lambda: syrk_update_lower_plain_(scratch, W))
     library["syrk_lower"] = cuda_ms(lambda: scratch.addmm_(W, W.T, alpha=-1.0))
-    bounds["syrk_lower"] = syrk_bound(m, k)
-    del T, W, scratch, L11
+    bounds["syrk_lower"] = syrk_tc_bound(m, k)
+    mt, kt = SYRK_TAIL
+    Tt, Wt = scratch[-mt:, -mt:].contiguous(), W[-mt:, :kt].contiguous()
+    times["syrk_lower_tail"] = timed_pair(
+        lambda: syrk_update_lower_(Tt, Wt),
+        lambda: syrk_update_lower_plain_(Tt, Wt))
+    print(f"  syrk_lower times (CUDA events, in turns): m={m} k={k} kernel "
+          f"{times['syrk_lower'][0]!r} ms, plain {times['syrk_lower'][1]!r} "
+          f"ms, tensor-core bound {bounds['syrk_lower'][0]!r} ms; m={mt} "
+          f"k={kt} kernel {times['syrk_lower_tail'][0]!r} ms, plain "
+          f"{times['syrk_lower_tail'][1]!r} ms, tensor-core bound "
+          f"{syrk_tc_bound(mt, kt)[0]!r} ms")
+    del T, W, scratch, L11, Tt, Wt
     torch.cuda.empty_cache()
 
     err["chol_leaf"] = 0.0
@@ -2122,6 +2171,7 @@ def main(argv=None) -> int:
     errs_chol, chol_times, chol_bounds, library = chol_checks(dev, x)
     errs |= errs_chol
     leaf2048 = chol_times.pop("leaf_chol_2048")
+    syrk_tail = chol_times.pop("syrk_lower_tail")
     leaf_grids = chol_times.pop("chol_leaf_grid")
     ktimes |= chol_times
     bounds |= chol_bounds
@@ -2228,8 +2278,10 @@ def main(argv=None) -> int:
           f"(a library product, not the same function) {qtimes[2]!r} ms")
     print(f"  syrk_lower: torch.addmm(T, W, W.T, alpha=-1) {library['syrk_lower']!r}"
           " ms (not the same function: the full square, twice the work); "
-          "bound with the product in three TF32 passes on the tensor cores "
-          f"{syrk_tc_bound(*SYRK_PROBE)[0]!r} ms")
+          "bound with the product on the f32 pipes "
+          f"{syrk_bound(*SYRK_PROBE)[0]!r} ms; at m = {SYRK_TAIL[0]}, k = "
+          f"{SYRK_TAIL[1]} kernel {syrk_tail[0]!r} ms, plain {syrk_tail[1]!r}"
+          f" ms, tensor-core bound {syrk_tc_bound(*SYRK_TAIL)[0]!r} ms")
     print(f"  chol_leaf: torch.linalg.cholesky_ex at n = {LEAF_SIZES[0]} "
           f"{library['chol_leaf']!r} ms; at n = {2 * LEAF_SIZES[0]}: "
           f"_leaf_chol_ (two leaves, the split's inverse and products) "
@@ -2481,7 +2533,10 @@ def main(argv=None) -> int:
         "gram_matvec_matern32_ms": matvec_m32_ms,
         "var_refine_peak_gib": refined_peak,
         "gram_matmat_f32_pipe_bound_ms": matmat_f32_bound[0],
-        "syrk_lower_tc_bound_ms": syrk_tc_bound(*SYRK_PROBE)[0],
+        "syrk_lower_f32_pipe_bound_ms": syrk_bound(*SYRK_PROBE)[0],
+        "syrk_lower_tail": {"m": SYRK_TAIL[0], "k": SYRK_TAIL[1],
+                            "ms": syrk_tail[0], "plain_ms": syrk_tail[1],
+                            "bound_ms": syrk_tc_bound(*SYRK_TAIL)[0]},
         "chol_leaf_grid": leaf_grids,
         "leaf_chol_2048_ms": leaf2048[0],
         "cholesky_ex_2048_ms": leaf2048[1],

@@ -81,8 +81,8 @@ _SIGNATURES = {
     # x, y, V, out, vth, vtl, yt, n, m, d, r, kappa, shape, stream
     "stpy_gram_matmat": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                          ctypes.c_float, _I, _P),
-    # C, W, m, k, ldc, ldw, stream
-    "stpy_syrk_lower": (_P, _P, _I, _I, _I, _I, _P),
+    # C, W, wh, wl, m, k, ldc, ldw, stream
+    "stpy_syrk_lower": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     # A, n, lda, stream
     "stpy_chol_leaf": (_P, _I, _I, _P),
     # n -> blocks of the leaf's cooperative launch

@@ -5,20 +5,24 @@ Port of stpy_tpu/ops/pallas_syrk.py (`syrk_update_lower`, `_leaf_chol`,
 fast=True)`. A right-looking Cholesky only reads the lower triangle of its
 trailing matrix, so its update T ← T − W·Wᵀ needs only the entries i ≥ j:
 half the work of a dense product. For CUDA tensors `syrk_update_lower_`
-launches csrc/syrk_lower.cu (float32, IEEE f32 sums, TF32 off); for CPU
-tensors it runs `syrk_update_lower_plain_`, the same update in PyTorch, one
-row block at a time.
+launches csrc/syrk_lower.cu; for CPU tensors it runs
+`syrk_update_lower_plain_`, the same update in PyTorch (f32 sums), one row
+block at a time.
 
 The JAX kernel splits W into bf16 halves (`split_bf16`) because the TPU has
-no f32 matrix mode; the card computes in f32, so the split is not ported.
+no f32 matrix mode, and keeps three of the four products, hi·hiᵀ + hi·loᵀ +
+lo·hiᵀ. The card kernel keeps the same three terms with TF32 halves on the
+tensor cores (`split_tf32` is its split: 11-bit halves against bf16's 8, so
+the product is finer than the reference's), summing in f32.
 
 Memory: `chol_blocked_syrk` copies A's lower triangle once into the output
 and factors there, as LAPACK's potrf does: each diagonal block is factored
 in place (`ops.chol_leaf.chol_leaf_`), each panel W is written over the
 panel, and the trailing block is updated in place through a view whose
-rows are strided, so the peak is A plus one factor and one panel.
+rows are strided, so the peak is A plus one factor and one panel, and, on
+the card, the kernel's split of the panel (8·m·k bytes, 235 MB at the
+16k factor's first update).
 """
-
 from __future__ import annotations
 
 import torch
@@ -26,6 +30,27 @@ import torch
 from stpy_tpu_torch import _build
 from stpy_tpu_torch.ops import check_cuda_inputs
 from stpy_tpu_torch.ops.chol_leaf import MAX_LEAF, chol_leaf_
+
+# csrc/syrk_lower.cu's split of W: 128-row bands in 32-deep k-tiles
+SYRK_BAND, SYRK_TILE_K = 128, 32
+
+
+def _tf32_bits(x):
+    """cvt.rna.tf32.f32's rounding of float32 x (to nearest, ties away from
+    zero, onto 10 mantissa bits), as csrc/wgmma_tf32.cuh's `to_tf32`: the
+    bits plus 0x1000, the 13 low bits cleared, in integer ops."""
+    bits = x.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    bits = (bits + 0x1000) & 0xFFFFE000
+    bits = torch.where(bits >= 2 ** 31, bits - 2 ** 32, bits)
+    return bits.to(torch.int32).view(torch.float32)
+
+
+def split_tf32(W):
+    """The card kernel's split of float32 W into TF32 halves (hi, lo):
+    hi = tf32(W), lo = tf32(W − hi), so |W − hi − lo| ≤ 2⁻²²|W|. Plain
+    PyTorch, any device."""
+    hi = _tf32_bits(W)
+    return hi, _tf32_bits(W - hi)
 
 
 def syrk_update_lower_plain_(T, W, block: int = 512):
@@ -46,7 +71,9 @@ def syrk_update_lower_(T, W, block: int = 512):
     triangle of T is neither read nor written. T (m, m) may be a view whose
     rows are strided (the trailing block of a factor); W (m, k) must not
     overlap T. `block` sets the plain version's row blocks. CUDA: the hand
-    kernel (float32); CPU: `syrk_update_lower_plain_`. Returns T."""
+    kernel (float32, the product on the TF32 tensor cores in three passes,
+    see `split_tf32`; it allocates its split of W, 8·m·k bytes); CPU:
+    `syrk_update_lower_plain_`. Returns T."""
     if (T.dim() != 2 or W.dim() != 2 or T.shape[0] != T.shape[1]
             or W.shape[0] != T.shape[0]):
         raise ValueError(f"syrk_update_lower: shapes {tuple(T.shape)} and "
@@ -62,10 +89,13 @@ def syrk_update_lower_(T, W, block: int = 512):
         W = W.contiguous()
     if m == 0 or k == 0:
         return T
+    split = (-(-m // SYRK_BAND) * -(-k // SYRK_TILE_K)
+             * SYRK_BAND * SYRK_TILE_K)
+    wh, wl = torch.empty((2, split), dtype=torch.float32, device=T.device)
     lib = _build.library()
     with torch.cuda.device(T.device):
         err = lib.stpy_syrk_lower(
-            T.data_ptr(), W.data_ptr(), m, k,
+            T.data_ptr(), W.data_ptr(), wh.data_ptr(), wl.data_ptr(), m, k,
             max(T.stride(0), m), W.stride(0),
             torch.cuda.current_stream().cuda_stream)
     _build.check(err, "syrk_lower")

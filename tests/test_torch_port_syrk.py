@@ -7,8 +7,11 @@ The same numpy inputs go through the port's plain versions (which the
 wrappers run for CPU tensors) and through the JAX Pallas kernels in
 interpret mode, with small nb and block, as tests/test_pallas_syrk.py runs
 them. The JAX update splits W into bf16 halves (bf16x3, Precision.HIGH
-accuracy); the port computes in f32, which is the whole gap between them.
-Tolerances, each with its reason beside it below.
+accuracy); the port's plain version computes in f32, which is the whole gap
+between them. The card kernel keeps the JAX kernel's three products with
+TF32 halves (`split_tf32`); its split and the three-term product are held
+here, in plain PyTorch, against float64 and the JAX kernel. Tolerances,
+each with its reason beside it below.
 """
 
 import numpy as np
@@ -26,6 +29,7 @@ from stpy_tpu_torch import linalg as tl
 from stpy_tpu_torch.ops import kernel_wrappers, launch_counts
 from stpy_tpu_torch.ops.syrk import (
     chol_blocked_syrk,
+    split_tf32,
     syrk_update_lower,
     syrk_update_lower_,
     syrk_update_lower_plain_,
@@ -81,6 +85,55 @@ def test_syrk_update_lower_matches_jax_and_float64(m, k):
                   / scale[il]) <= SYRK_JAX_RTOL
     assert np.max(lower_errors(got.numpy(), T, W)) <= SYRK_F64_RTOL
     assert np.max(lower_errors(want, T, W)) <= SYRK_JAX_RTOL
+
+
+def tf32_reference(a):
+    """cvt.rna.tf32.f32 in numpy: the float32 bits plus 0x1000, the 13 low
+    bits cleared (unsigned, wrapping as the card's uint32 does)."""
+    bits = np.asarray(a, np.float32).view(np.uint32).astype(np.uint64)
+    return ((bits + 0x1000) & 0xFFFFE000).astype(np.uint32).view(np.float32)
+
+
+@pytest.mark.parametrize("m, k", [(192, 128), (100, 70)])
+def test_split_tf32_halves_are_tf32_exact(m, k):
+    """hi = tf32(W), lo = tf32(W − hi), each with its 13 low bits 0; hi is
+    the card's rounding bit for bit, ties (the 0x1000 bit alone) and a
+    carry into the exponent included."""
+    _, W = syrk_operands(m, k, seed=m)
+    W[0, :4] = np.array([1 + 2.0 ** -11, -(1 + 2.0 ** -11), 2 - 2.0 ** -23,
+                         0.0], np.float32)
+    hi, lo = split_tf32(torch.as_tensor(W))
+    assert hi.dtype == lo.dtype == torch.float32
+    for half in (hi, lo):
+        assert not (half.numpy().view(np.uint32) & 0x1FFF).any()
+    np.testing.assert_array_equal(hi.numpy(), tf32_reference(W))
+    np.testing.assert_array_equal(lo.numpy(), tf32_reference(W - hi.numpy()))
+    assert hi[0, :4].tolist() == [1 + 2.0 ** -10, -(1 + 2.0 ** -10), 2.0, 0.0]
+
+
+@pytest.mark.parametrize("m, k", [(192, 128), (100, 70)])
+def test_split_tf32_error_is_within_2_to_the_minus_22(m, k):
+    _, W = syrk_operands(m, k, seed=m)
+    hi, lo = (h.numpy().astype(np.float64) for h in split_tf32(torch.as_tensor(W)))
+    W64 = W.astype(np.float64)
+    assert np.all(np.abs(W64 - hi - lo) <= 2.0 ** -22 * np.abs(W64))
+
+
+@pytest.mark.parametrize("m, k", [(192, 128), (100, 70)])
+def test_three_term_tf32_product_matches_float64_and_jax(m, k):
+    """The card kernel's arithmetic without its f32 sums: T − (hi·hiᵀ +
+    hi·loᵀ + lo·hiᵀ) in float64. Its dropped lo·loᵀ and the split's
+    residual are a few 2⁻²² of |W_ip W_jp|, within the f32 bar against
+    float64 and the bf16x3 bar against the JAX kernel."""
+    T, W = syrk_operands(m, k, seed=m)
+    hi, lo = (h.numpy().astype(np.float64) for h in split_tf32(torch.as_tensor(W)))
+    got = T.astype(np.float64) - (hi @ hi.T + hi @ lo.T + lo @ hi.T)
+    assert np.max(lower_errors(got, T, W)) <= SYRK_F64_RTOL
+    want = np.asarray(jax_syrk(jnp.asarray(T), jnp.asarray(W), block=64,
+                               block_k=64, interpret=True), np.float64)
+    scale = np.abs(W.astype(np.float64)) @ np.abs(W.astype(np.float64)).T
+    il = np.tril_indices(m)
+    assert np.max(np.abs(got - want)[il] / scale[il]) <= SYRK_JAX_RTOL
 
 
 def test_in_place_update_of_a_trailing_view_equals_the_copy():
