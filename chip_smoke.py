@@ -29,7 +29,14 @@ evidence gradient at n = 32768 on phase 8's data and kernel, and on an ARD
 SE kernel, against the dense float64 gradient within the Hutchinson
 estimator's own spread, benchmarks/exp_lazy_hyperfit.py's full 65k fit,
 and IterativeGP.optimize_params on phase 9's GP, refitted to its float64
-residual. Phase 2c holds both matrix-free kernels in their derivative
+residual; then (phase 14) the exact GP's evidence hyperfit through the
+Gram kernels' autograd Functions: benchmarks/run_all.py config 1 (SE, and
+again with the Laplace kernel) against the port's own float64 fit on the
+CPU, an ARD SE bandwidth+noise fit at n = 4096 on the L-BFGS route, and
+sample / log_probability / log_marginal on config 1's fitted GP, with
+the hand Grams and their Functions' first and second derivatives held to
+float64 where phase 14 launches them. Phase 2c
+holds both matrix-free kernels in their derivative
 shapes ("dk_sq", "dk") too, and gram_matvec's backward against float64
 autograd; phase 2d holds syrk_lower against its plain f32 version and
 against the model of its TF32 arithmetic (ops.syrk.split_tf32). The launch counters, zeroed just before each tier's run and read
@@ -72,7 +79,7 @@ from stpy_tpu_torch.ops.chol_leaf import (
     MAX_LEAF, chol_leaf, chol_leaf_, chol_leaf_grid, chol_leaf_plain,
 )
 from stpy_tpu_torch.ops.gemv_df import gemv_df, gemv_df_plain
-from stpy_tpu_torch.ops.gram import gram_plain, gram_scaled
+from stpy_tpu_torch.ops.gram import gram_plain, gram_scaled, gram_se
 from stpy_tpu_torch.ops.gram_df import (
     gram_df_plain, gram_df_scaled, scale_coords,
 )
@@ -80,7 +87,7 @@ from stpy_tpu_torch.ops.gram_df_stages import (
     ENTRY_STAGES, GRAM_STAGES, df_entry_stage, df_entry_stage_plain,
     gram_df_stage, gram_df_stage_plain,
 )
-from stpy_tpu_torch.ops.gram_l1 import gram_l1, gram_l1_plain
+from stpy_tpu_torch.ops.gram_l1 import gram_l1, gram_l1_plain, gram_laplace
 from stpy_tpu_torch.ops.gram import SHAPES
 from stpy_tpu_torch.ops.gram_matvec import (
     gram_matmat_plain, gram_matmat_scaled, gram_matvec, gram_matvec_plain,
@@ -256,6 +263,72 @@ HYPERFIT_D, HYPERFIT_S = 4, (0.08, 0.15)
 TPU_HYPERFIT = "gamma 0.999, sigma 0.120 (benchmarks/RESULTS.md:380)"
 # 13.3: IterativeGP.optimize_params on phase 9's fitted GP, a few steps
 OPTIMIZE_STEPS = 3
+# Phase 14: the exact GP's evidence hyperfit. 14.1 is benchmarks/run_all.py
+# config 1 (:67-93) as written: n = 1024, x ~ U(-1, 1), y = sin 4x + 0.05ε
+# (numpy seed 0), GaussianProcess(gamma=1.0, s=0.05, d=1), 8 restarts of
+# 40 iterations: a warm-up, then CONFIG1_REPS fits, each on a fresh GP from
+# γ = 1 (cold, as a user fits); 14.2 the same with the Laplace kernel.
+# Their reference is the port's own optimizer in float64 on the CPU (plain
+# Gram) on the same data: γ within FIT_GAMMA_RTOL (the bar of
+# tests/test_exact_gp.py:475-500), and the float64 evidence at the card's γ
+# within FIT_EVIDENCE_RTOL of its value at the reference's.
+CONFIG1_N, CONFIG1_GP = 1024, dict(gamma=1.0, s=0.05, d=1)
+CONFIG1_FIT = dict(type="bandwidth", restarts=8, maxiter=40)
+CONFIG1_REPS = 5
+FIT_GAMMA_RTOL, FIT_EVIDENCE_RTOL = 1e-3, 1e-6
+# The card's evidence (the f32 hand Gram, factored in float64) and its
+# gradient in log γ at the fitted γ, against the float64 model's on the
+# CPU: a first-order bound on the f32 Gram's rounding, each entry off by
+# EVIDENCE_ULPS·2⁻²⁴·|K|(1 + P), P = (|x̃ᵢ| + |x̃ⱼ|)² (the shape's rounding,
+# and sq's: a few ulps of |x̃ᵢ|² + |x̃ⱼ|², moved into K by |k'(sq)| ≤ ½k),
+# through |∂f/∂K| ≤ ½(|A⁻¹| + |α||α|ᵀ); the gradient's term has
+# |K| + |∂K/∂log γ| in place of |K|. It leaves out the change of A⁻¹ with
+# the entries (a second-order term), and is loose by the rounding's
+# random signs; phase 14 prints the ratio.
+EVIDENCE_ULPS = 4
+# The hand Grams where the fit launches them, against their plain versions
+# in f32 and float64 (phase 2's GRAM_F32_ATOL / GRAM_ATOL, GRAM_L1_ATOL):
+# config 1's x (1024², d = 1) at 14.1's and 14.2's fitted γ, and 14.3's
+# 4096², d = 8 at its fitted ARD γ. Then the Functions' backward and double
+# backward there (`ops.gram._Gram`, `ops.gram_l1._GramL1`): L = Σ W∘K with
+# W ~ U(0, 1), its gradient in t = log γ (scalar or per dimension) and κ,
+# and its second derivative in t along v ~ N(0, 1), on f32 tensors on the
+# card, against autograd of the plain version in float64 on the same
+# inputs; each within 2·matvec_rtol(n) of the sum of its terms' absolute
+# values (`gram_fn_scales`), as phase 2c holds gram_matvec's backward.
+# 14.3: ARD SE bandwidth+noise (9 parameters: L-BFGS, batched line search)
+# on the first ARD_FIT_N rows of the bench data, from γ = 1, s = 0.3; the
+# float64 evidence at the fit under its start value, and its float64
+# gradient in the raw (log) parameters at most ARD_GRAD_CUT of the start's.
+ARD_FIT_N, ARD_FIT_S0 = 4096, 0.3
+ARD_FIT = dict(type="bandwidth+noise", restarts=1, maxiter=40)
+ARD_GRAD_CUT = 1e-2
+# 14.4: sample, log_probability and log_marginal on 14.1's fitted GP at
+# SAMPLE_T points of [-1, 1], with sample's default jitter. sample factors
+# the float64 covariance of `GaussianProcess._moments64` (k** and K* from
+# the double-float Gram, gram_df); in f32, k** − VᵀV there is indefinite by
+# a fifth of its mean variance (phase 14.4 prints mean_std(full=True)'s
+# least eigenvalue), past the ladder's last step. Held: the ladder's jitter
+# at most SAMPLE_JITTER_MAX of the mean variance; the draws' mean and
+# covariance against the mean and the L Lᵀ that sample factored, within
+# SAMPLE_SE standard errors of the draws' own spread (the errors' norms
+# against their RMS under sampling); and that covariance against the
+# float64 model's on the CPU, within SAMPLE_COV_RTOL in Frobenius norm (the
+# f32 fit's factor: 0.87 % measured on the CPU's f32 Cholesky).
+SAMPLE_T, SAMPLE_DRAWS, SAMPLE_SE = 256, 4000, 4.0
+SAMPLE_JITTER_MAX, SAMPLE_COV_RTOL = 1e-2, 5e-2
+SAMPLE_JITTER = 1e-8             # sample's default: the ladder's first step
+# log_probability of one draw at LOGPROB_POINTS spread test points (at
+# the 256 the covariance is singular to float64's rounding and the density
+# is the jitter's): within LOGPROB_RTOL of the same formula in float64 on
+# the card's moments, and within LOGPROB_F32_RTOL of the float64
+# posterior's (the f32 fit's factor sets that floor). log_marginal within
+# LOG_MARGINAL_RTOL of float64.
+LOGPROB_POINTS, LOGPROB_RTOL, LOGPROB_F32_RTOL = 8, 1e-4, 1e-2
+LOG_MARGINAL_RTOL = 1e-4
+# gram_l1 at the bench shape before its redesign onto gram.cu's layout
+# (PERF.md §6 row 2); tools/kernel_ab.py times the two kernels in turns
+GRAM_L1_BEFORE_MS = 0.6712479829788208
 # Phase 2c holds the derivative shapes at the sizes phase 13 launches them
 # too, as DERIV_FAMILIES' note says, on K(x, x) of uniform points at each
 # cell's n, d and starting lengthscales; a width None is gram_matvec, an
@@ -621,6 +694,10 @@ def kernel_checks(dev):
                 lambda: gram_l1(xu, yu, inv_g2, 1.0),
                 lambda: gram_l1_plain(xu, yu, inv_g2, 1.0))
             times["bounds"] = gram_bounds(n, m, d)
+            t, b = times["gram_l1"][0], times["bounds"]["gram_l1"][0]
+            print(f"  gram_l1 bench  {n}x{m} d={d}: kernel {t!r} ms, bound "
+                  f"{b!r} ms ({b / t * 100:.1f} % of it reached); before "
+                  f"its redesign {GRAM_L1_BEFORE_MS} ms (PERF.md §6)")
         for fam, nu in FAMILIES:
             K = gram_scaled(xs, ys, 1.0, fam, nu)
             Kp = gram_plain(xs, ys, 1.0, fam, nu)
@@ -2123,6 +2200,381 @@ def optimize_phase(gp, x, y):
     return out, wall, counts, resid
 
 
+def config1_data():
+    """benchmarks/run_all.py:70-73: x ~ U(-1, 1)^(1024 × 1), y = sin 4x +
+    0.05ε, numpy seed 0 (float64 numpy; each GP converts to its dtype)."""
+    rng = np.random.default_rng(0)
+    x = rng.uniform(-1, 1, (CONFIG1_N, 1))
+    return x, np.sin(4 * x) + 0.05 * rng.standard_normal((CONFIG1_N, 1))
+
+
+def float64_gp(x, y, **kw):
+    """A GaussianProcess in float64 on the CPU (the plain Gram), fitted."""
+    gp = GaussianProcess(device="cpu", dtype=torch.float64, **kw)
+    gp.fit_gp(x, y)
+    return gp
+
+
+def evidence_and_grad(gp, gamma):
+    """The negative log evidence of `gp` at the bandwidth γ and its
+    derivative in log γ (float64 values)."""
+    t = torch.tensor(math.log(gamma), dtype=torch.float64, device=gp.device,
+                     requires_grad=True)
+    f = gp.log_marginal_params(gp.kernel_object,
+                               {"0": {"gamma": torch.exp(t)}}, gp.s)
+    (g,) = torch.autograd.grad(f, t)
+    return float(f.detach()), float(g)
+
+
+def evidence_scales(x, gamma, s, y, laplace):
+    """EVIDENCE_CHECK's two scales, float64 on the CPU: Σ|Ḡ|∘|K|(1 + P)
+    and Σ|Ḡ|∘(|K| + |∂K/∂log γ|)(1 + P), |Ḡ| = ½(|A⁻¹| + |α||α|ᵀ)."""
+    x = torch.as_tensor(x, dtype=torch.float64)
+    xs = x / gamma
+    P = (xs.abs().sum(1)[:, None] + xs.abs().sum(1)[None, :]) ** 2
+    if laplace:
+        u = torch.cdist(x, x, p=1) / gamma ** 2
+        K, dK = torch.exp(-u), 2 * u * torch.exp(-u)
+    else:
+        sq = torch.cdist(xs, xs) ** 2
+        K, dK = torch.exp(-0.5 * sq), sq * torch.exp(-0.5 * sq)
+    A = K + s * s * torch.eye(len(x), dtype=torch.float64)
+    Ai = torch.linalg.inv(A)
+    a = (Ai @ torch.as_tensor(y, dtype=torch.float64)).abs()
+    G = 0.5 * (Ai.abs() + a @ a.T) * (1 + P)
+    return float((G * K).sum()), float((G * (K + dK)).sum())
+
+
+def gram_fn_scales(x, t, kappa, W, v, laplace):
+    """Per quantity of `gram_fn_check`, the sum of the absolute values of
+    its terms, float64, with P_c = (|x̃ᵢc| + |x̃ⱼc|)² in place of sq_c where
+    the backward forms it by a difference (x̄s = 2(rowsum(W)x̃ − W·ỹ)).
+    SE: ∂K/∂t_c = K·sq_c, ∂²K/∂t_c∂t_c' = K(sq_c sq_c' − 2δ sq_c);
+    Laplace: ∂K/∂t = 2uK, ∂²K/∂t² = (4u² − 4u)K, u = D/γ²."""
+    x, t, W = x.double(), t.double(), W.double().abs()
+    g = torch.exp(t)
+    if laplace:
+        u = torch.cdist(x, x, p=1) / g ** 2
+        K = kappa * torch.exp(-u)
+        WK = W * K
+        return {"value": float(WK.sum()), "kappa": float(WK.sum() / kappa),
+                "t": (2 * WK * u).sum().reshape(1),
+                "hvp": (WK * (4 * u * u + 4 * u)).sum().reshape(1)
+                * v.double().abs()}
+    xs = x / g
+    K = kappa * torch.exp(-0.5 * torch.cdist(xs, xs) ** 2)
+    WK = W * K
+    P = [(xs[:, c].abs()[:, None] + xs[:, c].abs()[None, :]) ** 2
+         for c in range(x.shape[1])]
+    if t.numel() == 1:
+        P = [sum(P)]
+    av = v.double().abs()
+    Pv = sum(a * Pc for a, Pc in zip(av, P))
+    return {"value": float(WK.sum()), "kappa": float(WK.sum() / kappa),
+            "t": torch.stack([(WK * Pc).sum() for Pc in P]),
+            "hvp": torch.stack([(WK * Pc * (Pv + 2 * a)).sum()
+                                for a, Pc in zip(av, P)])}
+
+
+def gram_fn_check(label, x, gamma, laplace, seed):
+    """The hand Gram (`gram_se` / `gram_laplace`) at x (f32 on the card) and
+    γ, see the note above EVIDENCE_ULPS: its entries against the plain
+    version in f32 and float64, then its Function's gradient of Σ W∘K in
+    t = log γ and κ and the second derivative in t along v against float64
+    autograd of the plain version. Returns the largest error over scale."""
+    dev = x.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    n = x.shape[0]
+    g = torch.as_tensor(gamma, **f32)
+    with torch.no_grad():
+        if laplace:
+            inv_g2 = 1.0 / float(g) ** 2
+            K = gram_laplace(x, x, float(g), 1.0)
+            e = float((K - gram_l1_plain(x, x, inv_g2, 1.0)).abs().max())
+            e64 = float((K.double() - gram_l1_plain(
+                x.double(), x.double(), inv_g2, 1.0)).abs().max())
+            bars = (GRAM_L1_ATOL, GRAM_L1_ATOL)
+        else:
+            K = gram_se(x, x, g, 1.0)
+            xs = x / g
+            e = float((K - gram_plain(xs, xs, 1.0, "se")).abs().max())
+            xs64 = x.double() / g.double()
+            e64 = float((K.double() - gram_plain(xs64, xs64, 1.0, "se"))
+                        .abs().max())
+            bars = (GRAM_F32_ATOL, GRAM_ATOL)
+    print(f"  {label}: gram{'_l1' if laplace else ''} {n}x{n} d={x.shape[1]}"
+          f": max abs err {e!r} (plain f32), {e64!r} (plain f64); bars "
+          f"{bars[0]}, {bars[1]}")
+    assert e <= bars[0] and e64 <= bars[1], (label, e, e64)
+    del K
+
+    rng = np.random.default_rng(seed)
+    W = torch.as_tensor(rng.uniform(0, 1, (n, n)), **f32)
+    v = torch.as_tensor(rng.standard_normal(g.numel()), **f32)
+    kappa = 1.3
+
+    def derivatives(dtype, plain):
+        xd = x.to(dtype)
+        t = torch.log(g.to(dtype)).clone().requires_grad_()
+        k = torch.tensor(kappa, dtype=dtype, device=dev, requires_grad=True)
+        gt = torch.exp(t)
+        if laplace:
+            inv = 1.0 / (gt * gt)
+            K = (gram_l1_plain(xd, xd, inv, k) if plain
+                 else gram_laplace(xd, xd, gt, k))
+        elif plain:
+            K = gram_plain(xd / gt, xd / gt, k, "se")
+        else:
+            K = gram_se(xd, xd, gt, k)
+        L = (W.to(dtype) * K).sum()
+        d_t, d_k = torch.autograd.grad(L, (t, k), create_graph=True)
+        (h,) = torch.autograd.grad((d_t * v.to(dtype)).sum(), t)
+        return {"value": float(L.detach()), "kappa": float(d_k.detach()),
+                "t": d_t.detach().double().reshape(-1),
+                "hvp": h.double().reshape(-1)}
+
+    got = derivatives(torch.float32, plain=False)
+    want = derivatives(torch.float64, plain=True)
+    scales = gram_fn_scales(x, torch.log(g), kappa, W, v, laplace)
+    bar = 2 * matvec_rtol(n)
+    errs = {}
+    for q in ("value", "kappa", "t", "hvp"):
+        d = torch.as_tensor(got[q], dtype=torch.float64) - torch.as_tensor(
+            want[q], dtype=torch.float64)
+        errs[q] = float((d.abs().cpu() / torch.as_tensor(
+            scales[q], dtype=torch.float64).cpu()).max())
+    print(f"  {label}: Σ W∘K and its derivatives on f32 against float64 "
+          f"autograd, max err / scale: " + ", ".join(
+              f"{q} {e!r}" for q, e in errs.items()) + f" (bar {bar!r})")
+    assert max(errs.values()) <= bar, (label, errs)
+    return max(errs.values())
+
+
+def exact_hyperfit_phase(dev, kernel_name):
+    """14.1 / 14.2: config 1's fit on the card with `kernel_name`: a warm-up
+    fit, then CONFIG1_REPS cold fits, each on a fresh GP, their
+    optimize_params timed and counted; the same fit in float64 on the CPU;
+    the evidence and its gradient at the fitted γ against float64; the hand
+    Gram and its Function at that γ (`gram_fn_check`). Returns (the last
+    fit's GP, record)."""
+    x, y = config1_data()
+    laplace = kernel_name == "laplace"
+
+    def cold_fit():
+        gp = GaussianProcess(kernel_name=kernel_name, device=dev, **CONFIG1_GP)
+        gp.fit_gp(x, y)
+        return gp, *counted(lambda: gp.optimize_params(**CONFIG1_FIT))[1:]
+
+    _, first_s, _ = cold_fit()
+    fits = [cold_fit() for _ in range(CONFIG1_REPS)]
+    gp, _, counts = fits[-1]
+    walls = [w for _, w, _ in fits]
+    gammas = [float(f[0].kernel_object.params_dict["0"]["gamma"]) for f in fits]
+    kernel = "gram_l1" if laplace else "gram"
+    launches = [c[kernel] for _, _, c in fits]
+    gamma = gammas[-1]
+    hm = gp.hyperopt_metrics
+    t0 = time.perf_counter()
+    ref = float64_gp(x, y, kernel_name=kernel_name, **CONFIG1_GP)
+    ref.optimize_params(**CONFIG1_FIT)
+    ref_s = time.perf_counter() - t0
+    gamma64 = float(ref.kernel_object.params_dict["0"]["gamma"])
+    ev = evidence_and_grad(ref, gamma)[0]
+    ev64 = evidence_and_grad(ref, gamma64)[0]
+    rel_gamma = abs(gamma - gamma64) / gamma64
+    rel_ev = abs(ev - ev64) / abs(ev64)
+    # the card's evidence and gradient against the float64 model's, at the
+    # fitted γ and at the start, where the gradient is far from 0
+    evid = {}
+    for at in (gamma, CONFIG1_GP["gamma"]):
+        sf, sg = (EVIDENCE_ULPS * 2.0 ** -24 * v for v in evidence_scales(
+            x, at, CONFIG1_GP["s"], y, laplace))
+        evid[at] = (*evidence_and_grad(gp, at), *evidence_and_grad(ref, at),
+                    sf, sg)
+    q1, q3 = np.percentile(walls, [25, 75])
+    out = {"wall_s": float(np.median(walls)), "wall_iqr_s": float(q3 - q1),
+           "walls_s": walls, "warmup_s": first_s, "gamma": gamma,
+           "gammas": gammas, "gamma64": gamma64, "gamma_rel_err": rel_gamma,
+           "evidence64_at_gamma": ev, "evidence64_at_gamma64": ev64,
+           "evidence_rel_err": rel_ev, "route": hm["route"],
+           "iterations": hm["iterations"].tolist(),
+           "converged": hm["converged"].tolist(),
+           "launches_per_fit": launches[-1], "reference_s": ref_s,
+           "evidence_card_f64_bar_grad_card_f64_bar": {
+               str(k): v for k, v in evid.items()}}
+    print(f"  {kernel_name}: warm-up fit {first_s!r} s; {CONFIG1_REPS} cold "
+          f"fits (fresh GP from γ = 1) median {out['wall_s']!r} s, IQR "
+          f"{out['wall_iqr_s']!r} s; route {hm['route']}; γ {gamma!r} (the "
+          f"{CONFIG1_REPS} fits: {gammas}) against the float64 fit's "
+          f"{gamma64!r} (rel {rel_gamma!r}, bar {FIT_GAMMA_RTOL}); float64 "
+          f"evidence there {ev!r} against {ev64!r} (rel {rel_ev!r}, bar "
+          f"{FIT_EVIDENCE_RTOL}); iterations {out['iterations']}, converged "
+          f"{out['converged']}; {kernel} launches per fit {launches} (all "
+          f"{counts}); the float64 CPU fit {ref_s!r} s")
+    for at, (f_card, g_card, f_ref, g_ref, sf, sg) in evid.items():
+        print(f"  {kernel_name}: at γ = {at!r}, the card's evidence "
+              f"{f_card!r} against float64's {f_ref!r} (|Δ| "
+              f"{abs(f_card - f_ref)!r}, bar {sf!r}); its derivative in "
+              f"log γ {g_card!r} against {g_ref!r} (|Δ| "
+              f"{abs(g_card - g_ref)!r}, bar {sg!r})")
+    assert all(c > 0 for c in launches), launches
+    assert rel_gamma <= FIT_GAMMA_RTOL, (gamma, gamma64)
+    assert rel_ev <= FIT_EVIDENCE_RTOL, (ev, ev64)
+    for f_card, g_card, f_ref, g_ref, sf, sg in evid.values():
+        assert abs(f_card - f_ref) <= sf, (f_card, f_ref, sf)
+        assert abs(g_card - g_ref) <= sg, (g_card, g_ref, sg)
+    xd = torch.as_tensor(x, dtype=torch.float32, device=dev)
+    out["function_max_err_over_scale"] = gram_fn_check(
+        f"{kernel_name} at γ", xd, gamma, laplace, seed=7)
+    return gp, out
+
+
+def ard_fit_phase(dev):
+    """14.3: an ARD SE bandwidth+noise fit on the first ARD_FIT_N rows of
+    the bench data; the float64 evidence and its gradient in the raw (log)
+    parameters, on the CPU, at the start and at the fit; then `gram_fn_check`
+    at the fitted γ."""
+    x, y, _ = bench_data(dev)
+    x, y = x[:ARD_FIT_N], y[:ARD_FIT_N]
+    gp = GaussianProcess(kernel=KernelFunction(
+        kernel_name="ard", ard_gamma=[1.0] * D, d=D, device=dev),
+        s=ARD_FIT_S0)
+    gp.fit_gp(x, y)
+    ref = GaussianProcess(kernel=KernelFunction(
+        kernel_name="ard", d=D, device="cpu", dtype=torch.float64), s=1.0)
+    ref.load_data((x.cpu(), y.cpu()))
+
+    def value_and_grad64(gammas, s):
+        raw = torch.log(torch.tensor([*gammas, s], dtype=torch.float64))
+        raw.requires_grad_()
+        f = ref.log_marginal_params(
+            ref.kernel_object, {"0": {"ard_gamma": torch.exp(raw[:D])}},
+            torch.exp(raw[D]))
+        (g,) = torch.autograd.grad(f, raw)
+        return float(f.detach()), float(torch.linalg.vector_norm(g))
+
+    f0, g0 = value_and_grad64([1.0] * D, ARD_FIT_S0)
+    _, wall, counts = counted(lambda: gp.optimize_params(**ARD_FIT))
+    gammas = gp.kernel_object.params_dict["0"]["ard_gamma"].tolist()
+    f1, g1 = value_and_grad64(gammas, gp.s)
+    hm = gp.hyperopt_metrics
+    out = {"wall_s": wall, "route": hm["route"],
+           "iterations": hm["iterations"].tolist(),
+           "converged": hm["converged"].tolist(), "ard_gamma": gammas,
+           "noise": gp.s, "evidence64_start": f0, "evidence64_fit": f1,
+           "grad64_norm_start": g0, "grad64_norm_fit": g1,
+           "launches": counts["gram"]}
+    print(f"  ARD SE, n = {ARD_FIT_N}, d = {D}, {ARD_FIT}: {wall!r} s, route "
+          f"{hm['route']}, iterations {out['iterations']}, converged "
+          f"{out['converged']}; γ {gammas}, s {gp.s!r}; float64 evidence "
+          f"{f0!r} -> {f1!r}, its gradient's norm in the raw parameters "
+          f"{g0!r} -> {g1!r} (ratio {g1 / g0!r}, bar {ARD_GRAD_CUT}); gram "
+          f"launches {counts['gram']}")
+    assert hm["route"] == "batched", hm["route"]
+    assert f1 < f0, (f0, f1)
+    assert g1 <= ARD_GRAD_CUT * g0, (g0, g1)
+    assert counts["gram"] > 0, counts
+    del gp
+    torch.cuda.empty_cache()
+    out["function_max_err_over_scale"] = gram_fn_check(
+        "ARD SE at the fitted γ", x, gammas, False, seed=8)
+    torch.cuda.empty_cache()
+    return out
+
+
+def sample_phase(gp, dev):
+    """14.4: sample, log_probability and log_marginal on 14.1's fitted GP
+    (see the notes above SAMPLE_T and LOGPROB_POINTS), against float64 on
+    the CPU at the card's γ."""
+    x, y = config1_data()
+    gamma = float(gp.kernel_object.params_dict["0"]["gamma"])
+    gp64 = float64_gp(x, y, **{**CONFIG1_GP, "gamma": gamma})
+    xt = torch.linspace(-1, 1, SAMPLE_T, device=dev)[:, None]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    draws, wall, counts = counted(lambda: gp.sample(
+        xt, size=SAMPLE_DRAWS, jitter=SAMPLE_JITTER, generator=gen))
+    assert draws.shape == (SAMPLE_T, SAMPLE_DRAWS), draws.shape
+    assert bool(torch.isfinite(draws).all())
+    # what sample factored: the same moments, the same ladder
+    mu, cov = gp._moments64(xt)
+    res = linalg.safe_cholesky(cov.clone(), jitter=SAMPLE_JITTER)
+    C = res.L @ res.L.T
+    mean_var = float(cov.diagonal().mean())
+    n = SAMPLE_DRAWS
+    d64 = draws.double()
+    xbar = d64.mean(dim=1, keepdim=True)
+    S = (d64 - xbar) @ (d64 - xbar).T / (n - 1)
+    tr, fro = float(torch.trace(C)), float(torch.linalg.matrix_norm(C))
+    mean_err = float(torch.linalg.vector_norm(xbar - mu))
+    mean_se = math.sqrt(tr / n)
+    cov_err = float(torch.linalg.matrix_norm(S - C))
+    cov_se = math.sqrt((fro ** 2 + tr ** 2) / n)
+    _, cov64 = gp64.mean_std(xt.cpu().double(), full=True)
+    cov_rel = float(torch.linalg.matrix_norm(cov.cpu() - cov64)
+                    / torch.linalg.matrix_norm(cov64))
+    _, cov32 = gp.mean_std(xt, full=True)
+    eig32 = float(torch.linalg.eigvalsh(cov32.double()).min())
+    # log_probability at LOGPROB_POINTS spread points
+    idx = torch.arange(0, SAMPLE_T, SAMPLE_T // LOGPROB_POINTS, device=dev)
+    xs, draw = xt[idx], draws[idx, 0]
+    lp = gp.log_probability(xs, draw)
+    mu8, cov8 = gp._moments64(xs)
+    r8 = linalg.safe_cholesky(cov8.clone())
+    A = cov8 + float(r8.jitter) * torch.eye(len(idx), dtype=torch.float64,
+                                            device=dev)
+    diff = draw.double()[:, None] - mu8
+    L8 = torch.linalg.cholesky(A)
+    lp_same = float(-0.5 * (diff.T @ torch.cholesky_solve(diff, L8))[0, 0]
+                    - torch.log(torch.diagonal(L8)).sum()
+                    - 0.5 * len(idx) * math.log(2 * math.pi))
+    lp64 = gp64.log_probability(xs.cpu().double(), draw.cpu().double())
+    lm = float(gp.log_marginal(gp.kernel_object, {}))
+    lm64 = float(gp64.log_marginal(gp64.kernel_object, {}))
+    out = {"sample_s": wall, "mean_err": mean_err,
+           "mean_bar": SAMPLE_SE * mean_se, "cov_frobenius_err": cov_err,
+           "cov_bar": SAMPLE_SE * cov_se, "ladder_jitter": float(res.jitter),
+           "mean_variance": mean_var, "cov_rel_err_vs_f64": cov_rel,
+           "f32_cov_eig_min": eig32, "log_probability": lp,
+           "log_probability_f64_same_moments": lp_same,
+           "log_probability_f64_posterior": lp64, "log_marginal": lm,
+           "log_marginal_f64": lm64, "launches": counts["gram_df"]}
+    print(f"  sample: {SAMPLE_DRAWS} draws at {SAMPLE_T} points in {wall!r} s "
+          f"(gram_df launches {counts['gram_df']}); ladder jitter "
+          f"{float(res.jitter)!r} against the mean variance {mean_var!r} "
+          f"(bar {SAMPLE_JITTER_MAX} of it; mean_std(full=True)'s f32 "
+          f"covariance has least eigenvalue {eig32!r}); |x̄ − μ| "
+          f"{mean_err!r} (bar {SAMPLE_SE} × {mean_se!r}), ‖S − L Lᵀ‖_F "
+          f"{cov_err!r} (bar {SAMPLE_SE} × {cov_se!r}); the covariance "
+          f"against the float64 model's, rel Frobenius {cov_rel!r} (bar "
+          f"{SAMPLE_COV_RTOL})")
+    print(f"  log_probability at {len(idx)} points: {lp!r}; float64 on the "
+          f"same moments {lp_same!r} (rel {abs(lp - lp_same) / abs(lp_same)!r}, "
+          f"bar {LOGPROB_RTOL}); the float64 posterior's {lp64!r} (rel "
+          f"{abs(lp - lp64) / abs(lp64)!r}, bar {LOGPROB_F32_RTOL}); "
+          f"log_marginal {lm!r} against float64 {lm64!r} (rel "
+          f"{abs(lm - lm64) / abs(lm64)!r}, bar {LOG_MARGINAL_RTOL})")
+    # gram_df where sample launches it: K(x**, x) and K(x**, x**)
+    xs64 = xt.double() / gamma
+    for label, ys64 in (("x", gp.x.double() / gamma), ("x**", xs64)):
+        hi, lo = gram_df_scaled(xs64, ys64, 1.0, "se", 1.0)
+        hp, lp_ = gram_df_plain(xs64, ys64, 1.0, "se", 1.0)
+        ref_df = hp.double() + lp_.double()
+        rel = float(((hi.double() + lo.double() - ref_df).abs()
+                     / ref_df.abs().clamp_min(1e-300)).max())
+        print(f"  gram_df K(x**, {label}) {tuple(ref_df.shape)}: max rel err "
+              f"{rel!r} (bar {GRAM_DF_RTOL})")
+        assert rel <= GRAM_DF_RTOL, (label, rel)
+    assert counts["gram_df"] > 0, counts
+    assert float(res.jitter) <= SAMPLE_JITTER_MAX * mean_var, res.jitter
+    assert mean_err <= SAMPLE_SE * mean_se, (mean_err, mean_se)
+    assert cov_err <= SAMPLE_SE * cov_se, (cov_err, cov_se)
+    assert cov_rel <= SAMPLE_COV_RTOL, cov_rel
+    assert abs(lp - lp_same) <= LOGPROB_RTOL * abs(lp_same), (lp, lp_same)
+    assert abs(lp - lp64) <= LOGPROB_F32_RTOL * abs(lp64), (lp, lp64)
+    assert abs(lm - lm64) <= LOG_MARGINAL_RTOL * abs(lm64), (lm, lm64)
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
@@ -2521,6 +2973,24 @@ def main(argv=None) -> int:
     walls |= {"evidence_32k_sum": ev_sum[2], "evidence_32k_ard": ev_ard[2],
               "hyperfit_65k": hyper_wall, "optimize_params_65k": opt_wall}
 
+    print("== phase 14: the exact GP's evidence hyperfit (opt/lbfgs.py, "
+          "Estimator.optimize_params_general, GaussianProcess.optimize_params"
+          " / sample / log_probability / log_marginal)")
+    print(f"  14.1 benchmarks/run_all.py config 1: n = {CONFIG1_N}, "
+          f"{CONFIG1_GP}, {CONFIG1_FIT}")
+    gp_c1, fit_se = exact_hyperfit_phase(dev, "squared_exponential")
+    print("  14.2 the same with the Laplace kernel")
+    _, fit_laplace = exact_hyperfit_phase(dev, "laplace")
+    print("  14.3 an ARD SE bandwidth+noise fit")
+    fit_ard = ard_fit_phase(dev)
+    print(f"  14.4 sample, log_probability and log_marginal on 14.1's GP")
+    sampled = sample_phase(gp_c1, dev)
+    del gp_c1
+    torch.cuda.empty_cache()
+    walls |= {"config1_hyperfit": fit_se["wall_s"],
+              "config1_laplace_hyperfit": fit_laplace["wall_s"],
+              "ard_4096_hyperfit": fit_ard["wall_s"]}
+
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": REPLACES[name][0],
          "replaces": REPLACES[name][1], "tier": launches[name][0],
@@ -2568,7 +3038,9 @@ def main(argv=None) -> int:
         "optimize_params_65k": {"gammas": optimized["gammas"],
                                 "noise": optimized["noise"],
                                 "residual": opt_resid,
-                                "launches": opt_counts}}
+                                "launches": opt_counts},
+        "exact_hyperfit": {"config1": fit_se, "config1_laplace": fit_laplace,
+                           "ard_4096": fit_ard, "sample_256": sampled}}
     print(json.dumps(record))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

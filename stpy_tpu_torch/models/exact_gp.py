@@ -16,6 +16,11 @@ Port of stpy_tpu/models/exact_gp.py for the exact-GP serving path:
 The models run on the card unless ``device="cpu"`` is passed (or a kernel
 that lives on the CPU).
 
+It also fits hyperparameters on the evidence (`optimize_params`,
+`log_marginal`, through `Estimator.optimize_params_general`), differentiating
+through the hand Grams' autograd Functions, and samples the posterior
+(`sample`, `log_probability`).
+
 PyTorch runs eagerly, so the JAX package's jitted closures become plain
 methods. Everything else the JAX model offers raises NotImplementedError
 naming the ROADMAP item that ports it.
@@ -345,16 +350,140 @@ class GaussianProcess(Estimator):
         mu, s = self.mean_std(xtest)
         return mu - self.beta_mult * s
 
-    # -- not ported yet ----------------------------------------------------------
+    # -- sampling ----------------------------------------------------------------
+    def _gram64(self, a, b):
+        """The Gram K(a, b) in float64 for `_moments64`: on a model narrower
+        than float64, from the double-float Gram (csrc/gram_df.cu on the
+        card) where every atom is a df family, else the model's Gram
+        promoted."""
+        ko, pd = self.kernel_object, self.kernel_object.params_dict
+        f64 = torch.float64
+        if self.dtype != f64:
+            try:
+                desc = self._df_desc or df_atom_desc(ko)
+            except NotImplementedError:   # laplace, composites outside df
+                desc = None
+            if desc is not None:
+                Kh, Kl = df_gram_from_desc(ko, pd, a, b, desc)
+                return Kh.to(f64) + Kl.to(f64)
+        return ko.eval_params(pd, a, b).to(f64)
+
+    def _moments64(self, xtest):
+        """(mean, covariance) at `xtest` in float64, for `sample` and
+        `log_probability`: the posterior's through the fitted factor L and
+        alpha, the prior's if unfitted. The posterior variance of points a
+        few noise lengths apart is a small remainder of k** − VᵀV, below
+        the f32 Gram's rounding: on `benchmarks/run_all.py` config 1 at 256
+        points of [−1, 1] the f32 covariance has a least eigenvalue of −19 %
+        of its mean variance (an H100), −2.3 % with only the algebra in
+        float64 (the CPU), past the jitter ladder's 1e-2 of the mean
+        variance. With k** and K* in float64 it is the posterior covariance
+        under the fitted L Lᵀ, PSD there to float64's rounding. On a float64
+        single-tier model it is `mean_std(full=True)`'s arithmetic."""
+        f64 = torch.float64
+        xtest = self._tensor(xtest)
+        if not self.fitted:
+            mean = torch.zeros((xtest.shape[0], 1), dtype=f64,
+                               device=self.device) + self.mu
+            return mean, self._gram64(xtest, xtest)
+        Ks = self._gram64(xtest, self.x)                          # (t, n)
+        alpha = self.A if self._A_df is None else self._A_df
+        mean = Ks @ alpha.to(f64).sum(dim=1, keepdim=True)
+        V = tri_solve_blocked(self.L.to(f64), Ks.T)
+        return mean, self._gram64(xtest, xtest) - V.T @ V
+
+    def _factor64(self, cov, jitter=None):
+        """The jitter-ladder factor of `_moments64`'s covariance; raises
+        where the ladder fails rather than returning a NaN factor."""
+        res = safe_cholesky(cov, jitter=jitter)
+        if not bool(res.ok):
+            raise RuntimeError(
+                "the posterior covariance is not positive definite even "
+                f"with jitter {float(res.jitter)!r} on its diagonal; pass a "
+                "larger `jitter`")
+        return res
+
     def sample(self, xtest, size=1, jitter=1e-8, generator=None):
-        raise NotImplementedError("posterior sampling is ROADMAP Queue 1 item 3")
+        """Posterior (or prior if unfitted) path samples on a grid:
+        mean + L·z with L the jitter-ladder Cholesky factor of the full
+        covariance, both from `_moments64`, and z standard normals of the
+        model's dtype drawn from `generator` (torch's default generator
+        where None) on the generator's device. Returns the model's dtype;
+        raises if the ladder fails."""
+        mean, cov = self._moments64(xtest)
+        L = self._factor64(cov, jitter).L
+        where = self.device if generator is None else generator.device
+        z = torch.randn((mean.shape[0], size), generator=generator,
+                        dtype=self.dtype, device=where).to(self.device)
+        return (mean + L @ z.to(torch.float64)).to(self.dtype)
 
-    def log_marginal(self, kernel, X, weight=1.0):
-        raise NotImplementedError("the log marginal is ROADMAP Queue 1 item 3")
+    def log_probability(self, xtest, sample):
+        """log N(sample; μ, Σ) of the posterior at `xtest`, on
+        `_moments64`'s mean and covariance."""
+        mu, cov = self._moments64(xtest)
+        n = mu.shape[0]
+        L = self._factor64(cov).L
+        diff = as_tensor(sample, device=self.device,
+                         dtype=torch.float64).reshape(-1, 1) - mu
+        alpha = cho_solve(L, diff)
+        return float(-0.5 * (diff.T @ alpha)[0, 0]
+                     - 0.5 * logdet_from_chol(L)
+                     - 0.5 * n * math.log(2 * math.pi))
 
-    def optimize_params(self, *args, **kwargs):
-        raise NotImplementedError(
-            "hyperparameter fitting is ROADMAP Queue 1 item 5")
+    # -- hyperparameter presets (parity: gauss_procc.py:640-697) -----------------
+    def optimize_params(
+        self, type="bandwidth", restarts=10, regularizer=None, maxiter=200,
+        mingradnorm=1e-6, verbose=False, optimizer="lbfgs", scale=1.0,
+        weight=1.0, save=False, save_name="model.np", init_func=None,
+        bounds=None, generator=None,
+        **hyperopt_kwargs,
+    ):
+        """Fit the kernel's bandwidths (`type="bandwidth"`), bandwidths and
+        noise (`"bandwidth+noise"`) or amplitudes (`"kappa"`) on the
+        evidence by `optimize_params_general`, then refit.
+        `regularizer=("spectral_norm" | "lasso", λ)` adds
+        λ·Σ|exp(−raw)|."""
+        regularizer_func = None
+        if regularizer is not None:
+            kind, lam_r = regularizer[0], regularizer[1]
+            if kind in ("spectral_norm", "lasso"):
+                def regularizer_func(xf):
+                    return lam_r * torch.sum(torch.abs(1.0 / torch.exp(xf)))
 
+        pdict = self.kernel_object.params_dict
+        params = {}
+        if type in ("bandwidth", "bandwidth+noise"):
+            for pkey, d2 in pdict.items():
+                for var in ("gamma", "ard_gamma"):
+                    if var in d2:
+                        params[pkey] = {var: (init_func, None, bounds)}
+                        break
+            if type == "bandwidth+noise":
+                params["likelihood"] = {
+                    "sigma": ((lambda sz: self.s), None, None)}
+        elif type == "kappa":
+            for pkey, d2 in pdict.items():
+                if "kappa" in d2:
+                    params[pkey] = {"kappa": (init_func, None, bounds)}
+        elif type in ("covariance", "rots"):
+            raise NotImplementedError(
+                f"type={type!r}: the manifold fits of a full-covariance "
+                "kernel come with opt/manifold (ROADMAP Queue 1 item 9)")
+        elif type == "groups":
+            raise NotImplementedError(
+                "type='groups': additive-group selection comes with the "
+                "kernel tail's groups (ROADMAP Queue 1 item 7)")
+        else:
+            raise AttributeError("This quick-optimization is not implemented.")
+
+        return self.optimize_params_general(
+            params=params, restarts=restarts, optimizer=optimizer,
+            regularizer_func=regularizer_func, maxiter=maxiter,
+            mingradnorm=mingradnorm, verbose=verbose, scale=scale,
+            weight=weight, save=save, save_name=save_name,
+            generator=generator, **hyperopt_kwargs,
+        )
+
+    # -- not ported yet ----------------------------------------------------------
     def ucb_optimize(self, *args, **kwargs):
         raise NotImplementedError("ucb_optimize is ROADMAP Queue 1 item 6")

@@ -64,8 +64,15 @@ def check_cuda_inputs(name: str, dtype: torch.dtype, *tensors) -> None:
             raise TypeError(f"{name}: the CUDA kernel takes {dtype}, got {t.dtype}")
         if t.requires_grad:
             raise RuntimeError(
-                f"{name}: the CUDA kernel has no backward yet (the Gram "
-                "kernels' backward is ROADMAP Queue 1 item 5; the matrix-free "
-                "products differentiate through ops.gram_matvec.gram_matvec); "
-                "detach the inputs"
+                f"{name}: a direct call of the CUDA kernel has no backward "
+                "yet; differentiate through its module's public functions, "
+                "which launch it on detached inputs inside a "
+                "torch.autograd.Function, or detach the inputs"
             )
+
+
+def needs_grad(*values) -> bool:
+    """Whether autograd records and one of `values` is a tensor that
+    requires a gradient."""
+    return torch.is_grad_enabled() and any(
+        isinstance(v, torch.Tensor) and v.requires_grad for v in values)

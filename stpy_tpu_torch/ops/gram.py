@@ -4,16 +4,20 @@ Port of stpy_tpu/ops/pallas_gram.py (`gram_se`, `gram_matern`, `gram`). The
 1/γ scaling (scalar or ARD) happens here, outside the kernel, as in
 `pallas_gram._gram`. For CUDA tensors `gram_scaled` launches the hand-written
 kernel csrc/gram.cu (f32 only); for CPU tensors it runs `gram_plain`, the
-same formula in PyTorch (any float dtype, differentiable).
+same formula in PyTorch (any float dtype). Where an input needs a gradient,
+`gram_se` and `gram_matern` go through `_Gram`, whose backward is the JAX
+package's closed form (`pallas_gram._gram_bwd`).
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
 from stpy_tpu_torch import _build
 from stpy_tpu_torch.kernels import functions as F
-from stpy_tpu_torch.ops import check_cuda_inputs
+from stpy_tpu_torch.ops import check_cuda_inputs, needs_grad
 
 # (family, nu) -> the shape code of csrc/gram.cu and csrc/gram_df.cu
 SHAPE_CODES = {
@@ -88,16 +92,78 @@ def _as_factor(v, like: torch.Tensor):
     return v
 
 
+def as_scalar_tensor(v, like: torch.Tensor) -> torch.Tensor:
+    """`v` as a tensor of `like`'s dtype and device (a graph-keeping cast
+    where `v` is a tensor)."""
+    if isinstance(v, torch.Tensor):
+        return v.to(device=like.device, dtype=like.dtype)
+    return torch.tensor(float(v), dtype=like.dtype, device=like.device)
+
+
+def shape_and_slope(sq, family, nu):
+    """(k(sq), dk/dsq) of a squared scaled distance, as
+    stpy_tpu/ops/pallas_gram.py:_gram_bwd forms them."""
+    if family == "se":
+        K = torch.exp(-0.5 * sq)
+        return K, -0.5 * K
+    r = torch.sqrt(sq + _EPS)
+    if nu == 0.5:
+        K = torch.exp(-r)
+        return K, -K / (2.0 * r)
+    if nu == 1.5:
+        e = torch.exp(-math.sqrt(3.0) * r)
+        return (1.0 + math.sqrt(3.0) * r) * e, -1.5 * e
+    k = math.sqrt(5.0) * r
+    e = torch.exp(-k)
+    return (1.0 + k + k * k / 3.0) * e, -(5.0 / 6.0) * (1.0 + k) * e
+
+
+class _Gram(torch.autograd.Function):
+    """K = κ·k(sq(xs, ys)) of scaled coordinates, differentiable in xs, ys
+    and κ. The forward is `gram_scaled` on detached inputs (a launch of
+    csrc/gram.cu on the card). The backward is the closed form of
+    stpy_tpu/ops/pallas_gram.py:_gram_bwd, W = ḡ·κ·k'(sq):
+      x̄s = 2(rowsum(W)∘xs − W·ys),  ȳs = 2(colsum(W)∘ys − Wᵀ·xs),
+      κ̄ = Σ ḡ∘k(sq).
+    It is written in differentiable torch ops, so it has a backward of its
+    own (Newton's Hessian is reverse over reverse). γ is not an input:
+    its gradient, scalar or ARD, flows through xs = x/γ by autograd, the
+    quantity of `_gram_bwd`'s d_gamma without its (n, m, d) tensor."""
+
+    @staticmethod
+    def forward(ctx, xs, ys, kappa, family, nu):
+        ctx.save_for_backward(xs, ys, kappa)
+        ctx.family, ctx.nu = family, nu
+        return gram_scaled(xs.detach(), ys.detach(), kappa.detach(), family, nu)
+
+    @staticmethod
+    def backward(ctx, g):
+        xs, ys, kappa = ctx.saved_tensors
+        K, dK = shape_and_slope(F.sq_dist(xs, ys), ctx.family, ctx.nu)
+        W = g * kappa * dK
+        d_xs = 2.0 * (W.sum(dim=1, keepdim=True) * xs - W @ ys)
+        d_ys = 2.0 * (W.sum(dim=0)[:, None] * ys - W.T @ xs)
+        return d_xs, d_ys, torch.sum(g * K), None, None
+
+
+def gram_scaled_ad(xs, ys, kappa, family="se", nu=1.5):
+    """`gram_scaled`, through `_Gram` where an input needs a gradient;
+    otherwise the plain call, so the serving path is unchanged."""
+    if needs_grad(xs, ys, kappa):
+        return _Gram.apply(xs, ys, as_scalar_tensor(kappa, xs), family, nu)
+    return gram_scaled(xs, ys, kappa, family, nu)
+
+
 def gram_se(x, y, gamma, kappa=1.0):
     """Fused SE Gram κ·exp(−‖x−y‖²/(2γ²)); γ scalar or per-dim (ARD)."""
     g = _as_factor(gamma, x)
-    return gram_scaled(x / g, y / g, kappa, "se")
+    return gram_scaled_ad(x / g, y / g, kappa, "se")
 
 
 def gram_matern(x, y, gamma, kappa=1.0, nu=1.5):
     """Fused Matérn Gram for ν ∈ {½, 3/2, 5/2}."""
     g = _as_factor(gamma, x)
-    return gram_scaled(x / g, y / g, kappa, "matern", nu)
+    return gram_scaled_ad(x / g, y / g, kappa, "matern", nu)
 
 
 def gram(x, y, *, family="se", gamma=1.0, kappa=1.0, nu=1.5):

@@ -3,7 +3,9 @@
 Port of stpy_tpu/ops/pallas_gram.py (`gram_laplace`, `_gram_l1_pallas`). For
 CUDA tensors `gram_l1` launches the hand-written kernel csrc/gram_l1.cu (f32
 only); for CPU tensors it runs `gram_l1_plain`, the same formula in PyTorch
-(any float dtype, differentiable).
+(any float dtype). Where an input needs a gradient, `gram_laplace` goes
+through `_GramL1`, whose backward is the JAX package's closed form
+(`pallas_gram._gram_l1_bwd`).
 """
 
 from __future__ import annotations
@@ -12,8 +14,8 @@ import torch
 
 from stpy_tpu_torch import _build
 from stpy_tpu_torch.kernels import functions as F
-from stpy_tpu_torch.ops import check_cuda_inputs
-from stpy_tpu_torch.ops.gram import _as_factor
+from stpy_tpu_torch.ops import check_cuda_inputs, needs_grad
+from stpy_tpu_torch.ops.gram import _as_factor, as_scalar_tensor
 
 
 def gram_l1_plain(x, y, inv_g2, kappa):
@@ -50,6 +52,42 @@ def gram_l1(x, y, inv_g2, kappa):
 gram_l1.launches = 0
 
 
+class _GramL1(torch.autograd.Function):
+    """K = κ·exp(−inv_g2·D), D = ‖x_i − y_j‖₁, differentiable in x, y,
+    inv_g2 and κ. The forward is `gram_l1` on detached inputs (a launch of
+    csrc/gram_l1.cu on the card). The backward is the closed form of
+    stpy_tpu/ops/pallas_gram.py:_gram_l1_bwd, W = ḡ·κ·K·inv_g2:
+      x̄_c = −Σ_j W∘sign(x_c − y_c),  ȳ_c = Σ_i W∘sign(x_c − y_c),
+      inv_g2̄ = −Σ ḡ·κ·K·D,  κ̄ = Σ ḡ∘K,
+    with D and the signs formed a feature at a time (no (n, m, d) tensor).
+    It is written in differentiable torch ops, so it has a backward of its
+    own. γ's gradient flows through inv_g2 = 1/γ² by autograd."""
+
+    @staticmethod
+    def forward(ctx, x, y, inv_g2, kappa):
+        ctx.save_for_backward(x, y, inv_g2, kappa)
+        return gram_l1(x.detach(), y.detach(), inv_g2.detach(), kappa.detach())
+
+    @staticmethod
+    def backward(ctx, g):
+        x, y, inv_g2, kappa = ctx.saved_tensors
+        d = x.shape[1]
+        D = sum((x[:, c:c + 1] - y[:, c]).abs() for c in range(d))
+        gK = g * torch.exp(-D * inv_g2)
+        W = gK * (kappa * inv_g2)
+        d_x, d_y = [], []
+        for c in range(d):
+            WS = W * torch.sign(x[:, c:c + 1] - y[:, c])
+            d_x.append(-WS.sum(dim=1))
+            d_y.append(WS.sum(dim=0))
+        return (torch.stack(d_x, dim=1), torch.stack(d_y, dim=1),
+                -kappa * torch.sum(gK * D), torch.sum(gK))
+
+
 def gram_laplace(x, y, gamma, kappa=1.0):
     """Fused Laplace Gram κ·exp(−manhattan(x, y)/γ²); γ scalar."""
-    return gram_l1(x, y, 1.0 / (gamma * gamma), kappa)
+    inv_g2 = 1.0 / (gamma * gamma)
+    if needs_grad(x, y, inv_g2, kappa):
+        return _GramL1.apply(x, y, as_scalar_tensor(inv_g2, x),
+                             as_scalar_tensor(kappa, x))
+    return gram_l1(x, y, inv_g2, kappa)

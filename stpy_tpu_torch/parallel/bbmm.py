@@ -24,8 +24,7 @@ device in a fixed order: the preconditioner's landmarks, the probe block Z,
 then SLQ's probes; a fit seeds each step's generator, on x's device, from
 its `seed` and the step, as `fold_in(key, step)` does. The general tier for any kernel
 (`evidence_value_and_grad_general`, `fit_evidence_general`) autodiffs
-through the row-chunked Gram and waits for the Gram kernels' backward,
-ROADMAP Queue 1 item 5.
+through the row-chunked Gram and is ROADMAP Queue 1 item 5.
 """
 
 from __future__ import annotations
@@ -44,8 +43,8 @@ from stpy_tpu_torch.parallel.iterative import (
 )
 from stpy_tpu_torch.parallel.slq import rademacher, slq_logdet
 
-_GENERAL = ("the matrix-free evidence for any kernel autodiffs through the "
-            "row-chunked Gram and needs the Gram kernels' backward, ROADMAP "
+_GENERAL = ("the matrix-free evidence for any kernel (bbmm's general tier, "
+            "which autodiffs through the row-chunked Gram) is ROADMAP "
             "Queue 1 item 5")
 
 

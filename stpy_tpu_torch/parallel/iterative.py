@@ -687,8 +687,8 @@ class IterativeGP:
         if atoms is None:
             raise NotImplementedError(
                 "optimize_params for a kernel that is not a sum of fused "
-                "atoms autodiffs through the row-chunked Gram and needs the "
-                "Gram kernels' backward, ROADMAP Queue 1 item 5")
+                "atoms autodiffs through the row-chunked Gram (bbmm's "
+                "general tier, ROADMAP Queue 1 item 5)")
         kwargs.setdefault("precond_rank", resolve_precond_rank(
             self.precond_rank, int(self.x.shape[0])))
         desc = tuple((a.family, a.nu, a.group) for a in atoms)

@@ -22,6 +22,7 @@ from stpy_tpu_torch import GaussianProcess as TorchGP
 from stpy_tpu_torch.convert import load_fitted_state, params_from_jax
 from stpy_tpu_torch.kernels import df_plan
 from stpy_tpu_torch.ops import launch_counts
+from stpy_tpu_torch.opt import minimize_lbfgs
 
 from test_torch_port_gram import CASES, LAPLACE_CASES, jax_kernel, torch_kernel
 
@@ -299,22 +300,22 @@ def test_refit_releases_previous_fit(data):
     assert tg.n == 96
 
 
-@pytest.mark.parametrize("kwargs,method", [
+@pytest.mark.parametrize("kwargs,call", [
     (dict(jitter_ladder="recompute"), None),
     (dict(loss="huber"), None),
     (dict(precision="double", fold_noise=True, jitter_ladder=False), None),
-    ({}, "sample"),
-    ({}, "log_marginal"),
-    ({}, "optimize_params"),
-    ({}, "ucb_optimize"),
-], ids=["recompute", "robust-loss", "fold_noise", "sample",
-        "log_marginal", "optimize_params", "ucb_optimize"])
-def test_unported_paths_raise_naming_the_roadmap(kwargs, method):
+    ({}, lambda gp: gp.ucb_optimize()),
+    ({}, lambda gp: gp.optimize_params(optimizer="discrete")),
+    ({}, lambda gp: gp.optimize_params(type="covariance")),
+    ({}, lambda gp: gp.optimize_params(type="rots")),
+    ({}, lambda gp: gp.optimize_params(type="groups")),
+    ({}, lambda gp: minimize_lbfgs(torch.sum, torch.zeros(2))),
+], ids=["recompute", "robust-loss", "fold_noise", "ucb_optimize", "discrete",
+        "covariance", "rots", "groups", "zoom"])
+def test_unported_paths_raise_naming_the_roadmap(kwargs, call):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         gp = TorchGP(kernel=torch_kernel("se"), **kwargs)
-        args = {"sample": (np.zeros((2, 3)),),
-                "log_marginal": (None, None)}.get(method, ())
-        getattr(gp, method)(*args)
+        call(gp)
 
 
 def test_cpu_tensors_leave_every_launch_counter_at_zero(data):

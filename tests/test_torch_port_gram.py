@@ -210,7 +210,8 @@ def test_port_never_imports_jax():
         text = path.read_text()
         assert "import jax" not in text and "from jax" not in text, path
         for mod in _imported_modules(path):
-            assert mod.split(".")[0] not in ("jax", "stpy_tpu"), (path, mod)
+            assert mod.split(".")[0] not in ("jax", "optax", "stpy_tpu"), (
+                path, mod)
 
 
 def test_build_command_targets_sm90a_and_every_source():
@@ -233,7 +234,8 @@ def test_build_command_targets_sm90a_and_every_source():
     assert {h.name for h in _build.headers()} == {"gram_shape.cuh",
                                                   "gram_df_entry.cuh",
                                                   "async_copy.cuh",
-                                                  "wgmma_tf32.cuh"}
+                                                  "wgmma_tf32.cuh",
+                                                  "gram_tile.cuh"}
     assert _build.library_path().parent.parent == _build.BUILD_ROOT
 
 

@@ -7,9 +7,10 @@ BASE is an unpacked copy of an earlier commit, e.g.
 `git archive <commit> | tar -x -C build/base` (a directory .gitignore
 lists). Each tree's kernels are built from its own csrc/ into its own
 build/ and run on the same inputs, at the shapes `chip_smoke.py` times them:
-`gram` (n = m = 16384, d = 8, SE and Matérn-3/2, and a ragged shape) and
-`gram_matmat` (n = m = 65536, d = 8, r = 128, and a ragged shape), whose
-arithmetic the two trees share, are held bit for bit equal; `syrk_lower`
+`gram` (n = m = 16384, d = 8, SE and Matérn-3/2, and a ragged shape),
+`gram_l1` (n = m = 16384, d = 8, and ragged shapes at d = 1, 33 and 130)
+and `gram_matmat` (n = m = 65536, d = 8, r = 128, and a ragged shape),
+whose arithmetic the two trees share, are held bit for bit equal; `syrk_lower`
 (m = 14336 and 2048, k = 2048) is compared as max |Δ| / (|W||W|ᵀ). Each is
 timed by CUDA events in turns, base, this tree, this tree, base. Beside
 them, two yardsticks of what the card reaches at these shapes, used
@@ -37,8 +38,14 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 import chip_smoke as cs  # noqa: E402
 from stpy_tpu_torch import _build  # noqa: E402
 from stpy_tpu_torch.ops.gram import gram_scaled  # noqa: E402
+from stpy_tpu_torch.ops.gram_l1 import gram_l1  # noqa: E402
 from stpy_tpu_torch.ops.gram_matvec import gram_matmat_scaled  # noqa: E402
 from stpy_tpu_torch.ops.syrk import syrk_update_lower_  # noqa: E402
+
+
+# gram_l1's ragged shapes: n and m not multiples of 4 or 32, d one, past
+# one staged chunk of 32 features, and past four
+L1_RAGGED = ((300, 517, 1), (301, 259, 33), (77, 130, 130))
 
 
 def base_library(base: Path):
@@ -119,12 +126,23 @@ def main(argv=None) -> int:
                         dtype=torch.float32, device=dev)
     same_arithmetic("gram_matmat", "ragged", lambda: gram_matmat_scaled(
         x, y, V, 1.3, "se"), base, args.reps, False)
+    inv_g2 = 1.0 / cs.LAPLACE_GAMMA ** 2
+    for n, m, d in L1_RAGGED:
+        xu, yu = coords(n, d) * cs.GAMMA, coords(m, d) * cs.GAMMA
+        same_arithmetic("gram_l1", f"ragged {n}x{m} d={d}",
+                        lambda xu=xu, yu=yu: gram_l1(xu, yu, inv_g2, 1.3),
+                        base, args.reps, False)
 
     x = coords(cs.N, cs.D)
     for fam, nu in cs.FAMILIES:
         record[f"gram_{fam}"] = same_arithmetic(
             "gram", f"{cs.N}x{cs.N} d={cs.D} {fam}",
             lambda: gram_scaled(x, x, 1.0, fam, nu), base, args.reps, True)
+    xu = x * cs.GAMMA
+    record["gram_l1"] = same_arithmetic(
+        "gram_l1", f"{cs.N}x{cs.N} d={cs.D}",
+        lambda: gram_l1(xu, xu, inv_g2, 1.0), base, args.reps, True)
+    del xu
     x = coords(cs.LAZY_BIG_N, cs.D)
     V = torch.as_tensor(rng.standard_normal((cs.LAZY_BIG_N, cs.MATMAT_R)),
                         dtype=torch.float32, device=dev)
@@ -140,10 +158,8 @@ def main(argv=None) -> int:
                             dtype=torch.float32, device=dev)
 
         def base_fn(C=T, W=W):
-            err = base.stpy_syrk_lower(C.data_ptr(), W.data_ptr(), mm, k, mm,
-                                       k, torch.cuda.current_stream().cuda_stream)
-            assert err == 0, err
-            return C
+            with using(base):
+                return syrk_update_lower_(C, W)
 
         got = syrk_update_lower_(T.clone(), W)
         want = base_fn(T.clone())
