@@ -13,8 +13,9 @@ torch.linalg on the card, then drives the matrix-free large-n path
 (parallel.IterativeGP(lazy=True), CG on the gram_matvec / gram_matmat
 kernels) on the SE(0.5) + Matérn-3/2(0.8) sum kernel: at n = 32768 against
 a dense float64 posterior (single and double precision), and at n = 65536
-(benchmarks/exp_r4_65k_var.py) on constructor defaults, then with a
-rank-2048 preconditioner held to its float64 residual; then (phase 11) the
+(benchmarks/exp_r4_65k_var.py) on constructor defaults, with the public
+segmented solvers beside the unsegmented ones on the same systems, then
+with a rank-2048 preconditioner held to its float64 residual; then (phase 11) the
 fast blocked Cholesky (linalg.chol_dense(fast=True) on the chol_leaf and
 syrk_lower kernels) in benchmarks/exp_fastchol.py's three variants at
 n = 16384 against the same float64 posterior, and the factor rebuilt
@@ -35,7 +36,16 @@ again with the Laplace kernel) against the port's own float64 fit on the
 CPU, an ARD SE bandwidth+noise fit at n = 4096 on the L-BFGS route, and
 sample / log_probability / log_marginal on config 1's fitted GP, with
 the hand Grams and their Functions' first and second derivatives held to
-float64 where phase 14 launches them. Phase 2c
+float64 where phase 14 launches them; then (phase 15) the rest of the GP
+models: bbmm's general tier (the evidence gradient of a product and of a
+Laplace kernel at n = 32768 against dense float64, with its peak memory,
+and IterativeGP.optimize_params on the product), the df-refined
+matrix-free variance at n = 32768 against float64, the robust losses
+(fit, serve, MAP evidence) against the float64 model, ucb_optimize, the
+gradient helpers, sample_and_max / sample_iteratively_max, volume_mean and
+OnlineGP, each sub-phase holding the hand kernels it launched (and the
+Gram Functions' derivatives) against their plain versions at its shapes.
+Phase 2c
 holds both matrix-free kernels in their derivative
 shapes ("dk_sq", "dk") too, and gram_matvec's backward against float64
 autograd; phase 2d holds syrk_lower against its plain f32 version and
@@ -79,7 +89,11 @@ from stpy_tpu_torch.ops.chol_leaf import (
     MAX_LEAF, chol_leaf, chol_leaf_, chol_leaf_grid, chol_leaf_plain,
 )
 from stpy_tpu_torch.ops.gemv_df import gemv_df, gemv_df_plain
-from stpy_tpu_torch.ops.gram import gram_plain, gram_scaled, gram_se
+from stpy_tpu_torch.kernels.df_plan import df_gram_from_desc
+from stpy_tpu_torch.models import OnlineGP, exact_gp
+from stpy_tpu_torch.ops.gram import (
+    gram, gram_plain, gram_scaled, gram_se, shape_and_slope,
+)
 from stpy_tpu_torch.ops.gram_df import (
     gram_df_plain, gram_df_scaled, scale_coords,
 )
@@ -87,13 +101,14 @@ from stpy_tpu_torch.ops.gram_df_stages import (
     ENTRY_STAGES, GRAM_STAGES, df_entry_stage, df_entry_stage_plain,
     gram_df_stage, gram_df_stage_plain,
 )
-from stpy_tpu_torch.ops.gram_l1 import gram_l1, gram_l1_plain, gram_laplace
+from stpy_tpu_torch.ops.gram_l1 import gram_l1, gram_l1_plain
 from stpy_tpu_torch.ops.gram import SHAPES
 from stpy_tpu_torch.ops.gram_matvec import (
     gram_matmat_plain, gram_matmat_scaled, gram_matvec, gram_matvec_plain,
     gram_matvec_scaled, shape_gram_plain,
 )
 from stpy_tpu_torch.ops.qform_df import qform_df_plain, qform_refined_strip
+from stpy_tpu_torch.opt.lbfgs import LBFGSResult
 from stpy_tpu_torch.ops.syrk import (
     _leaf_chol_, split_tf32, syrk_update_lower_, syrk_update_lower_plain_,
 )
@@ -354,12 +369,21 @@ LAZY_RESIDUAL_MAX = 1e-4
 # at n = 65536 mean_std runs on all t = 1024 test points when four times
 # its wall on the first 256 stays under this many seconds, else on 256
 LAZY_BIG_MEAN_STD_S = 60.0
-# At n = 65536 the defaults' rank-512 preconditioner leaves the segmented
-# CG at maxiter = 500 with relative residual ~4e-4, above the 1e-4 bar
-# (PERF.md §6). Phase 9 runs the defaults once and prints that, then
-# serves with the one knob the fit's warning names, precond_rank, at 2048:
-# the f32 floor in ~400 iterations, in less time than the defaults' 500.
+# At n = 65536 the defaults' rank-512 preconditioner runs the fit's CG (one
+# solve, never segmented) to maxiter = 500; its float64 residual is ~1e-5,
+# under the 1e-4 bar (PERF.md §6). Phase 9 runs the defaults once and
+# prints that, then serves with the one knob the fit's warning names,
+# precond_rank, at 2048: the f32 floor in ~300 iterations, in less time.
 LAZY_BIG_RANK = 2048
+# The segmented solvers (the JAX package's above n = 32768; public in the
+# port, run by none of its models): phase 9 calls cg_solve_segmented on the
+# defaults' system and cg_solve_block_segmented on the first 128 columns of
+# the served GP's exact variance, each beside its unsegmented solve. Their
+# float64 residual is held at SEGMENTED_RESIDUAL_MAX: a segment that fails
+# to halve the residual ends the solve, so they stop at the f32 floor of a
+# restarted CG (~4e-4 for the defaults' system on an H100); the unsegmented
+# block at LAZY_RESIDUAL_MAX.
+SEGMENTED_RESIDUAL_MAX = 1e-3
 
 # The fast blocked Cholesky (phase 2d, phase 11): its block size, the
 # trailing update's shapes -- ragged, and the first (largest) of the fast
@@ -407,6 +431,94 @@ STAGE_RTOL = exp_r3_df_entry.DF_RTOL
 STAGE_FAMILIES = (("se", 1.5), ("matern", 0.5), ("matern", 1.5),
                   ("matern", 2.5))
 STAGE_KAPPA = 1.3
+
+# Phase 15: the rest of the GP models. Sizes follow the repo's workloads.
+# 15.1: bbmm's general tier (evidence_value_and_grad_general) on phase 8's
+# n = 32768, d = 8 data, on the product SE(0.5)·Matérn-5/2(0.8) and on
+# Laplace(γ = 2), 64 probes, row chunks of GENERAL_CHUNK, rank-512
+# preconditioner, CG at 1e-6, against the dense float64 gradient at phase
+# 13.1's bar (HUTCH_SIGMAS·σ + GRAD_RTOL·|g|); its peak device memory
+# above what was held before, at GENERAL_SMALL_N too (the product): a
+# graph that kept the (chunk, n) tiles would hold n² (4 GiB a product at
+# 32768), the checkpointed chunks hold n·chunk, so the peak may grow at
+# most GENERAL_PEAK_GROWTH-fold when n doubles (n² grows 4-fold).
+GENERAL_ATOMS = (("se", 2.5, 0.5), ("matern", 2.5, 0.8))
+GENERAL_CHUNK, GENERAL_SMALL_N, GENERAL_PEAK_GROWTH = 2048, 16384, 3.0
+# 15.2: IterativeGP(lazy=True).optimize_params on 15.1's product kernel at
+# n = 32768, GENERAL_FIT_STEPS Adam steps (tol 0: every step runs); the
+# dense float64 NLL at the end under its start value, and the refit's
+# float64 residual at most LAZY_RESIDUAL_MAX. The GP is precision="double"
+# (var_refine=0): at the fitted σ (0.075) an f32 refit's CG reports a
+# recurrence residual of 1e-6 while its true float64 residual is 4.0e-4 (an
+# H100), the f32 products' floor; the df refinement takes it under the bar.
+# The same refit in f32 is held at F32_REFIT_RESIDUAL_MAX, a guard at 2.5x
+# that floor, and both its residuals are printed. Then gram_df (each atom)
+# and gemv_df (the product's pair) at the refinement's (df_chunk, n) strips.
+GENERAL_FIT_STEPS = 10
+F32_REFIT_RESIDUAL_MAX = 1e-3
+# 15.3: the df-refined matrix-free variance (precision="double", the
+# default var_refine=1) on phase 8's system at t = LAZY_T, against the
+# dense float64 posterior: mean within LAZY_DOUBLE_MEAN_RTOL, variance max
+# within REFINED_VAR_MAX_RTOL (tests/test_parallel.py:552-590's bars).
+# 15.4: the robust losses on bench.py's first ROBUST_N rows with
+# ROBUST_FRACTION of y shifted by ROBUST_SHIFT (tests/test_exact_gp.py:
+# 138-149's outlier, lam = 0.5 as there), SE γ = 0.5, s = 0.1: the f32
+# fit's objective at its alpha (in float64) within ROBUST_OBJ_RTOL of the
+# float64 model's (the same loss on the plain float64 Gram, on the card);
+# neither L-BFGS converges in its 500 iterations here, and on the CPU's
+# f32 Gram the gap was −3.3e-5 (huber), −7e-9 (svr), −5.8e-7 (unif): the
+# f32 run ends lower. The huber mean must be closer to the clean-data
+# float64 posterior than the squared loss's. Then the MAP evidence and its
+# γ-derivative at config 1 (n = 1024, d = 1) with huber against the
+# float64 model. As called, the inner L-BFGS stops at its 300 iterations
+# unconverged, from a different K in each model, at a different α̂: the
+# value is held within MAP_RTOL relative (the CPU's f32 Gram: 4.0e-5 /
+# 5.3e-5 at γ = 1 / 0.3), the derivative, whose Danskin form holds only at
+# the argmin, is printed (the CPU: 5.7 % / 6.7 %). Then both at the float64
+# model's α̂, shared (`inner_argmin`): only K(γ) and its gradient differ,
+# in f32 against float64, and H = ∂²obj/∂α² is near singular (K + 1e-4 I);
+# the value within MAP_RTOL, the derivative within MAP_SHARED_GRAD_RTOL
+# (the CPU: 5.1e-7 / 4.0e-5, and 2.6e-5 / 6.8e-3).
+ROBUST_N, ROBUST_SHIFT, ROBUST_FRACTION, ROBUST_LAM = 4096, 30.0, 0.01, 0.5
+ROBUST_LOSSES = ("huber", "svr", "unif")
+ROBUST_OBJ_RTOL = 1e-3
+MAP_GAMMAS = (1.0, 0.3)
+MAP_RTOL, MAP_SHARED_GRAD_RTOL = 1e-3, 2e-2
+# 15.5: ucb_optimize on phase 3's GP (n = 16384, bounds [−1, 1]^8),
+# UCB_MULTISTART starts; the float64 model (plain float64 Gram on the card)
+# from the same starts: its best value within UCB_RTOL relative of the
+# card's, the card's point's float64 acquisition within UCB_RTOL of the
+# value the card reports, and at least the best of UCB_RANDOM random points.
+UCB_MULTISTART, UCB_RTOL, UCB_RANDOM = 25, 1e-3, 4096
+# 15.6: gradient_mean_var and mean_gradient_hessian at GRAD_POINTS test
+# points against the float64 model's autograd, each within GRAD_HELPER_RTOL
+# of the float64 quantity's largest entry (the CPU's f32 model: at most
+# 4.0e-5 for ∇μ, 4.7e-5 for ∇²σ², 1.7e-5 for ∇²μ).
+GRAD_POINTS, GRAD_HELPER_RTOL = 8, 1e-3
+# 15.7: sample_and_max (grid mode) on 15.5's GP at SAMPLE_MAX_T test
+# points, SAMPLE_MAX_SIZE paths, held to `sample` on the same generator
+# seed; sample_iteratively_max without a grid at config 1 (multistart 20,
+# grid 100), the data and the fit restored afterwards.
+SAMPLE_MAX_T, SAMPLE_MAX_SIZE = 1024, 16
+# 15.8: volume_mean on config 1's data with two band outliers (VOLUME_BAND),
+# both relaxes, at VOLUME_T points of [−1, 1]: as a user calls it (the
+# scale by bisection), timed; then at VOLUME_SCALE against the float64
+# model's run on the card. Both run in float64 (volume_mean's own policy);
+# the Grams differ at 1e-16. relu (FISTA): μ within VOLUME_RELU_RTOL of
+# its largest entry (8.6e-8 measured on the CPU). logistic: its L-BFGS
+# uses all 1000 iterations unconverged and its iterates are chaotic (on
+# the CPU two such runs ended 11 % apart in μ at scale 0.1), so it is held
+# by the objective at its fitted β (`inner_argmin` reads it) against the
+# float64 run's, one-sided, within VOLUME_OBJ_RTOL relative: on the CPU
+# the f32 model ended 3.1e-4 below, and float64 runs on inputs scaled by
+# 1 ± 1e-15 spread 3.3e-4. μ's difference is printed.
+VOLUME_BAND, VOLUME_T, VOLUME_SCALE = ((100, 3.0), (700, -3.0)), 256, 0.1
+VOLUME_RELU_RTOL, VOLUME_OBJ_RTOL = 1e-6, 1e-3
+# 15.9: OnlineGP, capacity ONLINE_CAP, d = 8, bench rows fed one at a time;
+# against the batch GaussianProcess on the same points at 4096 test points:
+# mean within ONLINE_MEAN_RTOL of its largest entry, std within
+# ONLINE_STD_RTOL entry by entry (the CPU's f32: 2.3e-6 and 5.0e-6).
+ONLINE_CAP, ONLINE_MEAN_RTOL, ONLINE_STD_RTOL = 4096, 1e-4, 1e-4
 
 REPLACES = {
     "gram": ("stpy_tpu_torch/csrc/gram.cu", "stpy_tpu/ops/pallas_gram.py:63"),
@@ -680,15 +792,8 @@ def kernel_checks(dev):
                                  dtype=torch.float32, device=dev)
         # the Laplace Gram of the unscaled coordinates in [-1, 1]
         xu, yu = xs * GAMMA, ys * GAMMA
-        K = gram_l1(xu, yu, inv_g2, 1.0)
-        e = float((K - gram_l1_plain(xu, yu, inv_g2, 1.0)).abs().max())
-        e64 = float((K.double() - gram_l1_plain(
-            xu.double(), yu.double(), inv_g2, 1.0)).abs().max())
-        print(f"  gram_l1 {label:6s} {n}x{m} d={d}: max abs err {e!r} "
-              f"(plain f32), {e64!r} (plain f64)")
-        assert e <= GRAM_L1_ATOL and e64 <= GRAM_L1_ATOL, ("gram_l1", label, e, e64)
-        err["gram_l1"] = max(err["gram_l1"], e)
-        del K
+        err["gram_l1"] = max(err["gram_l1"], gram_l1_check(
+            label, xu, yu, LAPLACE_GAMMA))
         if label == "bench":
             times["gram_l1"] = timed_pair(
                 lambda: gram_l1(xu, yu, inv_g2, 1.0),
@@ -699,41 +804,12 @@ def kernel_checks(dev):
                   f"{b!r} ms ({b / t * 100:.1f} % of it reached); before "
                   f"its redesign {GRAM_L1_BEFORE_MS} ms (PERF.md §6)")
         for fam, nu in FAMILIES:
-            K = gram_scaled(xs, ys, 1.0, fam, nu)
-            Kp = gram_plain(xs, ys, 1.0, fam, nu)
-            e = float((K - Kp).abs().max())
-            del Kp
-            Kp64 = gram_plain(xs.double(), ys.double(), 1.0, fam, nu)
-            e64 = float((K.double() - Kp64).abs().max())
-            print(f"  gram    {label:6s} {fam:6s} {n}x{m} d={d}: max abs err "
-                  f"{e!r} (plain f32), {e64!r} (plain f64)")
-            assert e <= GRAM_F32_ATOL and e64 <= GRAM_ATOL, ("gram", label, fam, e, e64)
-            err["gram"] = max(err["gram"], e)
-            del K, Kp64
-
-            hi, lo = gram_df_scaled(xs64, ys64, 1.0, fam, nu)
-            hp, lp = gram_df_plain(xs64, ys64, 1.0, fam, nu)
-            ref = hp.double() + lp.double()
-            diff = (hi.double() + lo.double() - ref).abs()
-            e = float(diff.max())
-            rel = float((diff / ref.abs().clamp_min(1e-300)).max())
-            print(f"  gram_df {label:6s} {fam:6s} {n}x{m} d={d}: max abs err "
-                  f"{e!r}, max rel err {rel!r}")
-            assert rel <= GRAM_DF_RTOL, ("gram_df", label, fam, rel)
+            err["gram"] = max(err["gram"], scaled_gram_check(
+                label, xs, ys, fam, nu))
+            e, hi, lo = gram_df_check(label, xs64, ys64, fam, nu, 1.0)
             err["gram_df"] = max(err["gram_df"], e)
-            del hp, lp, ref, diff
-
-            oh, ol = gemv_df(hi, lo, v, vl)
-            ph, pl = gemv_df_plain(hi, lo, v, vl)
-            scale = (hi.double() + lo.double()).abs() @ (
-                v.double() + vl.double()).abs()
-            d_ = (oh.double() + ol.double() - ph.double() - pl.double()).abs()
-            e = float(d_.max())
-            rel = float((d_ / scale.clamp_min(1e-300)).max())
-            print(f"  gemv_df {label:6s} {fam:6s} {n}x{m}: max abs err {e!r}, "
-                  f"max err / sum|A||v| {rel!r}")
-            assert rel <= GEMV_DF_RTOL, ("gemv_df", label, fam, rel)
-            err["gemv_df"] = max(err["gemv_df"], e)
+            err["gemv_df"] = max(err["gemv_df"], gemv_df_check(
+                f"{label} {fam}", hi, lo, v, vl))
 
             if label == "bench" and fam == "se":
                 times["gram"] = timed_pair(
@@ -1681,14 +1757,17 @@ def precond_basis_check(kernel, x, matmat, rank=512):
 
 def exact_residual(x, y, alpha, atoms=LAZY_ATOMS, s=LAZY_S):
     """‖y − (K + s²I)α‖/‖y‖ of the lazy tiers' system (atoms (family, nu,
-    γ), κ = 1) in float64, K·α by the plain matvec one row chunk at a time
-    (never the kernels under test)."""
-    a64, y64 = alpha.double().reshape(-1), y.double().reshape(-1)
+    γ), κ = 1) in float64, the largest over the columns of a block; K·α by
+    the plain matmat one row chunk at a time (never the kernels under
+    test)."""
+    n = x.shape[0]
+    a64, y64 = alpha.double().reshape(n, -1), y.double().reshape(n, -1)
     r = y64 - s * s * a64
     for fam, nu, gamma in atoms:
         xs = x.double() / gamma
-        r -= gram_matvec_plain(xs, xs, a64, 1.0, fam, nu)
-    return float(torch.linalg.vector_norm(r) / torch.linalg.vector_norm(y64))
+        r -= gram_matmat_plain(xs, xs, a64, 1.0, fam, nu)
+    return float((torch.linalg.vector_norm(r, dim=0)
+                  / torch.linalg.vector_norm(y64, dim=0)).max())
 
 
 def profile_run(label, run, top=10, ops=LINALG_OPS):
@@ -1961,13 +2040,19 @@ def df_stage_phase(dev):
     return results, counts, err, times, bounds
 
 
-def atom_k64(x64, fam, gamma, kappa, deriv=None):
+def atom_k64(x64, fam, gamma, kappa, deriv=None, nu=1.5):
     """One atom of the lazy tiers' kernels in float64 on the card, by plain
-    torch ops (no port code), one (n, n) buffer and at most one more:
+    torch ops (no port code), one (n, n) buffer and at most two more:
     κ·K (deriv None), ∂(κK)/∂γ for a scalar γ (deriv "gamma"), or
     ∂(κK)/∂γ_c for an ARD γ (deriv = c). SE: K = e^{−sq/2}, ∂K/∂γ = K·sq/γ,
     ∂K/∂γ_c = K·(x_c − y_c)²/γ_c³; Matérn-3/2: K = (1 + √3ρ)e^{−√3ρ},
-    ∂K/∂γ = 3ρ²e^{−√3ρ}/γ (sq = ρ² the scaled squared distance)."""
+    ∂K/∂γ = 3ρ²e^{−√3ρ}/γ; Matérn-5/2 (nu 2.5): K = (1 + √5ρ + 5ρ²/3)
+    e^{−√5ρ}, ∂K/∂γ = (5/3)ρ²(1 + √5ρ)e^{−√5ρ}/γ (sq = ρ² the scaled
+    squared distance); Laplace: K = e^{−u}, u = ‖·‖₁/γ², ∂K/∂γ = 2uK/γ."""
+    if fam == "laplace":
+        u = torch.cdist(x64, x64, p=1).div_(gamma * gamma)
+        K = torch.exp(-u).mul_(kappa)
+        return K.mul_(u).mul_(2.0 / gamma) if deriv == "gamma" else K
     g = torch.as_tensor(gamma, dtype=torch.float64, device=x64.device)
     xs = x64 / g
     n2 = (xs * xs).sum(1)
@@ -1986,6 +2071,14 @@ def atom_k64(x64, fam, gamma, kappa, deriv=None):
         return K.mul_((xc[:, None] - xc[None, :]).square_()).div_(
             float(g[c]) ** 3)
     rho = sq.sqrt_()
+    if nu == 2.5:
+        r = rho.mul_(math.sqrt(5.0))                        # √5ρ
+        e = torch.exp(-r)
+        if deriv == "gamma":
+            out = r * r
+            return out.mul_(r.add_(1.0)).mul_(e).mul_(
+                kappa / (3.0 * float(g)))
+        return (r * r).div_(3.0).add_(r).add_(1.0).mul_(e).mul_(kappa)
     e = torch.exp(-math.sqrt(3.0) * rho)
     if deriv == "gamma":
         return rho.square_().mul_(e).mul_(3.0 * kappa / float(g))
@@ -1993,59 +2086,34 @@ def atom_k64(x64, fam, gamma, kappa, deriv=None):
 
 
 def dense_evidence(x, y, atoms, s, probes):
-    """The exact NLL, log det A and, per hyperparameter (each atom's γ, or γ_c per dim
-    for an ARD γ, then its κ; last σ), (label, −½αᵀ∂Aα, ½tr(A⁻¹∂A), the
-    standard deviation of the port's estimator of ½tr(A⁻¹∂A) over `probes`
-    Rademacher probes), in float64 on the card from the Cholesky of
-    A = Σ κ_a K_a + σ²I. For B = A⁻¹∂A that deviation is
-    ½·√(Var(zᵀBz)/p), Var(zᵀBz) = ½Σᵢ≠ⱼ(Bᵢⱼ + Bⱼᵢ)². About 4 (n, n)
-    float64 buffers at a time (35 GB at n = 32768)."""
-    x64, y64 = x.double(), y.double().reshape(-1)
-    n = y64.shape[0]
-    A = None
-    for fam, gamma, kappa in atoms:
-        Ka = atom_k64(x64, fam, gamma, kappa)
-        A = Ka if A is None else A.add_(Ka)
-        del Ka
-    A.diagonal().add_(s * s)
-    L, info = torch.linalg.cholesky_ex(A)
-    assert int(info) == 0, info
-    del A
-    alpha = torch.cholesky_solve(y64[:, None], L)[:, 0]
-    logdet = 2.0 * float(torch.log(L.diagonal()).sum())
-    nll = float(0.5 * y64 @ alpha) + 0.5 * logdet + 0.5 * n * math.log(
-        2.0 * math.pi)
-    Ainv = torch.cholesky_inverse(L)
-    del L
-    out = []
+    """The exact NLL, log det A and, per hyperparameter (each atom's γ, or
+    γ_c per dim for an ARD γ, then its κ; last σ), (label, −½αᵀ∂Aα,
+    ½tr(A⁻¹∂A), the standard deviation of the port's estimator of
+    ½tr(A⁻¹∂A) over `probes` Rademacher probes), in float64 on the card
+    from the Cholesky of A = Σ κ_a K_a + σ²I (`dense_evidence_parts`). For
+    B = A⁻¹∂A that deviation is ½·√(Var(zᵀBz)/p), Var(zᵀBz) =
+    ½Σᵢ≠ⱼ(Bᵢⱼ + Bⱼᵢ)². About 4 (n, n) float64 buffers at a time (35 GB at
+    n = 32768)."""
+    x64 = x.double()
 
-    def moments(label, dA):
-        quad = float(-0.5 * alpha @ (dA @ alpha))
-        B = Ainv @ dA
-        del dA
-        half_tr = 0.5 * float(B.diagonal().sum())
-        S = B + B.T
-        del B
-        var = 0.5 * (float(torch.linalg.vector_norm(S)) ** 2
-                     - float(S.diagonal().square().sum()))
-        del S
-        out.append((label, quad, half_tr, 0.5 * math.sqrt(var / probes)))
+    def kernel_part():
+        A = None
+        for fam, gamma, kappa in atoms:
+            Ka = atom_k64(x64, fam, gamma, kappa)
+            A = Ka if A is None else A.add_(Ka)
+            del Ka
+        return A
 
+    params = []
     for a, (fam, gamma, kappa) in enumerate(atoms):
         dims = ["gamma"] if np.ndim(gamma) == 0 else list(range(len(gamma)))
         for c in dims:
-            moments(f"gamma{a}" + ("" if c == "gamma" else f"[{c}]"),
-                    atom_k64(x64, fam, gamma, kappa, c))
-        moments(f"kappa{a}", atom_k64(x64, fam, gamma, 1.0))
-    # σ: ∂A/∂σ = 2σI, so B = 2σA⁻¹ and B + Bᵀ = 4σA⁻¹
-    var = 0.5 * 16 * s * s * (float(torch.linalg.vector_norm(Ainv)) ** 2
-                              - float(Ainv.diagonal().square().sum()))
-    out.append(("noise", float(-s * alpha @ alpha),
-                s * float(Ainv.diagonal().sum()),
-                0.5 * math.sqrt(var / probes)))
-    del Ainv
-    torch.cuda.empty_cache()
-    return nll, logdet, out
+            params.append((f"gamma{a}" + ("" if c == "gamma" else f"[{c}]"),
+                           lambda fam=fam, gamma=gamma, kappa=kappa, c=c:
+                           atom_k64(x64, fam, gamma, kappa, c)))
+        params.append((f"kappa{a}", lambda fam=fam, gamma=gamma:
+                       atom_k64(x64, fam, gamma, 1.0)))
+    return dense_evidence_parts(x, y, s, probes, kernel_part, params)
 
 
 def port_quads(kernel, x, y, atoms, s):
@@ -2245,100 +2313,100 @@ def evidence_scales(x, gamma, s, y, laplace):
     return float((G * K).sum()), float((G * (K + dK)).sum())
 
 
-def gram_fn_scales(x, t, kappa, W, v, laplace):
+def gram_fn_scales(x, y, t, kappa, W, v, laplace, fam="se", nu=1.5):
     """Per quantity of `gram_fn_check`, the sum of the absolute values of
-    its terms, float64, with P_c = (|x̃ᵢc| + |x̃ⱼc|)² in place of sq_c where
-    the backward forms it by a difference (x̄s = 2(rowsum(W)x̃ − W·ỹ)).
-    SE: ∂K/∂t_c = K·sq_c, ∂²K/∂t_c∂t_c' = K(sq_c sq_c' − 2δ sq_c);
-    Laplace: ∂K/∂t = 2uK, ∂²K/∂t² = (4u² − 4u)K, u = D/γ²."""
-    x, t, W = x.double(), t.double(), W.double().abs()
+    its terms, float64, with P_c = (|x̃ᵢc| + |ỹⱼc|)² in place of sq_c where
+    the backward forms it by a difference (x̄s = 2(rowsum(W)x̃ − W·ỹ)):
+    ∂K/∂t_c = −2k'(sq)·sq_c (SE: K·sq_c), ∂²K/∂t_c∂t_c' = K(sq_c sq_c' −
+    2δ sq_c) (SE); Laplace: ∂K/∂t = 2uK, ∂²K/∂t² = (4u² − 4u)K, u = D/γ²."""
+    x, y, t, W = x.double(), y.double(), t.double(), W.double().abs()
     g = torch.exp(t)
     if laplace:
-        u = torch.cdist(x, x, p=1) / g ** 2
+        u = torch.cdist(x, y, p=1) / g ** 2
         K = kappa * torch.exp(-u)
         WK = W * K
         return {"value": float(WK.sum()), "kappa": float(WK.sum() / kappa),
                 "t": (2 * WK * u).sum().reshape(1),
                 "hvp": (WK * (4 * u * u + 4 * u)).sum().reshape(1)
                 * v.double().abs()}
-    xs = x / g
-    K = kappa * torch.exp(-0.5 * torch.cdist(xs, xs) ** 2)
-    WK = W * K
-    P = [(xs[:, c].abs()[:, None] + xs[:, c].abs()[None, :]) ** 2
-         for c in range(x.shape[1])]
-    if t.numel() == 1:
-        P = [sum(P)]
-    av = v.double().abs()
-    Pv = sum(a * Pc for a, Pc in zip(av, P))
-    return {"value": float(WK.sum()), "kappa": float(WK.sum() / kappa),
-            "t": torch.stack([(WK * Pc).sum() for Pc in P]),
-            "hvp": torch.stack([(WK * Pc * (Pv + 2 * a)).sum()
-                                for a, Pc in zip(av, P)])}
+    xs, ys = (x / g).abs(), (y / g).abs()
+    K, slope = shape_and_slope(torch.cdist(x / g, y / g).square_(), fam, nu)
+    WK = W * K.mul_(kappa)
+    WS = W * slope.abs_().mul_(2.0 * kappa)                 # SE: WS = WK
+    del K, slope
+
+    def P(c):
+        return (xs[:, c, None] + ys[None, :, c]) ** 2
+
+    Ps = ([sum(P(c) for c in range(x.shape[1]))] if t.numel() == 1
+          else [P(c) for c in range(x.shape[1])])
+    out = {"value": float(WK.sum()), "kappa": float(WK.sum() / kappa),
+           "t": torch.stack([(WS * Pc).sum() for Pc in Ps])}
+    if fam == "se":
+        av = v.double().abs()
+        Pv = sum(a * Pc for a, Pc in zip(av, Ps))
+        out["hvp"] = torch.stack([(WK * Pc * (Pv + 2 * a)).sum()
+                                  for a, Pc in zip(av, Ps)])
+    return out
 
 
-def gram_fn_check(label, x, gamma, laplace, seed):
-    """The hand Gram (`gram_se` / `gram_laplace`) at x (f32 on the card) and
-    γ, see the note above EVIDENCE_ULPS: its entries against the plain
-    version in f32 and float64, then its Function's gradient of Σ W∘K in
-    t = log γ and κ and the second derivative in t along v against float64
-    autograd of the plain version. Returns the largest error over scale."""
+def gram_fn_check(label, x, gamma, laplace, seed, y=None, fam="se", nu=1.5):
+    """The hand Gram (`gram`: `_Gram` of `fam`, or `_GramL1` where
+    `laplace`) at x × y (y = x where None; f32 on the card) and γ, see the
+    note above EVIDENCE_ULPS: its entries against the plain version in f32
+    and float64 (`gram_l1_check`, `scaled_gram_check`), then its Function's
+    gradient of Σ W∘K in t = log γ and κ and, for SE and Laplace, the
+    second derivative in t along v against float64 autograd of the plain
+    version, each within 2·matvec_rtol(m) of its scale (`gram_fn_scales`)
+    for m columns. Returns the largest error over scale."""
     dev = x.device
+    y = x if y is None else y
     f32 = dict(dtype=torch.float32, device=dev)
-    n = x.shape[0]
+    n, m = x.shape[0], y.shape[0]
     g = torch.as_tensor(gamma, **f32)
+    fam = "laplace" if laplace else fam
     with torch.no_grad():
         if laplace:
-            inv_g2 = 1.0 / float(g) ** 2
-            K = gram_laplace(x, x, float(g), 1.0)
-            e = float((K - gram_l1_plain(x, x, inv_g2, 1.0)).abs().max())
-            e64 = float((K.double() - gram_l1_plain(
-                x.double(), x.double(), inv_g2, 1.0)).abs().max())
-            bars = (GRAM_L1_ATOL, GRAM_L1_ATOL)
+            gram_l1_check(label, x, y, float(g))
         else:
-            K = gram_se(x, x, g, 1.0)
-            xs = x / g
-            e = float((K - gram_plain(xs, xs, 1.0, "se")).abs().max())
-            xs64 = x.double() / g.double()
-            e64 = float((K.double() - gram_plain(xs64, xs64, 1.0, "se"))
-                        .abs().max())
-            bars = (GRAM_F32_ATOL, GRAM_ATOL)
-    print(f"  {label}: gram{'_l1' if laplace else ''} {n}x{n} d={x.shape[1]}"
-          f": max abs err {e!r} (plain f32), {e64!r} (plain f64); bars "
-          f"{bars[0]}, {bars[1]}")
-    assert e <= bars[0] and e64 <= bars[1], (label, e, e64)
-    del K
+            scaled_gram_check(label, x / g, y / g, fam, nu)
+    second = fam in ("se", "laplace")
 
     rng = np.random.default_rng(seed)
-    W = torch.as_tensor(rng.uniform(0, 1, (n, n)), **f32)
+    W = torch.as_tensor(rng.uniform(0, 1, (n, m)), **f32)
     v = torch.as_tensor(rng.standard_normal(g.numel()), **f32)
     kappa = 1.3
 
     def derivatives(dtype, plain):
-        xd = x.to(dtype)
+        xd, yd = x.to(dtype), y.to(dtype)
         t = torch.log(g.to(dtype)).clone().requires_grad_()
         k = torch.tensor(kappa, dtype=dtype, device=dev, requires_grad=True)
         gt = torch.exp(t)
-        if laplace:
-            inv = 1.0 / (gt * gt)
-            K = (gram_l1_plain(xd, xd, inv, k) if plain
-                 else gram_laplace(xd, xd, gt, k))
-        elif plain:
-            K = gram_plain(xd / gt, xd / gt, k, "se")
+        if not plain:
+            K = gram(xd, yd, family=fam, gamma=gt, kappa=k, nu=nu)
+        elif laplace:
+            K = gram_l1_plain(xd, yd, 1.0 / (gt * gt), k)
         else:
-            K = gram_se(xd, xd, gt, k)
+            K = gram_plain(xd / gt, yd / gt, k, fam, nu)
         L = (W.to(dtype) * K).sum()
-        d_t, d_k = torch.autograd.grad(L, (t, k), create_graph=True)
-        (h,) = torch.autograd.grad((d_t * v.to(dtype)).sum(), t)
-        return {"value": float(L.detach()), "kappa": float(d_k.detach()),
-                "t": d_t.detach().double().reshape(-1),
-                "hvp": h.double().reshape(-1)}
+        del K
+        d_t, d_k = torch.autograd.grad(L, (t, k), create_graph=second)
+        out = {"value": float(L.detach()), "kappa": float(d_k.detach()),
+               "t": d_t.detach().double().reshape(-1)}
+        if second:
+            (h,) = torch.autograd.grad((d_t * v.to(dtype)).sum(), t)
+            out["hvp"] = h.double().reshape(-1)
+        return out
 
     got = derivatives(torch.float32, plain=False)
     want = derivatives(torch.float64, plain=True)
-    scales = gram_fn_scales(x, torch.log(g), kappa, W, v, laplace)
-    bar = 2 * matvec_rtol(n)
+    scales = gram_fn_scales(x, y, torch.log(g), kappa, W, v, laplace, fam,
+                            nu)
+    del W
+    torch.cuda.empty_cache()
+    bar = 2 * matvec_rtol(m)
     errs = {}
-    for q in ("value", "kappa", "t", "hvp"):
+    for q in got:
         d = torch.as_tensor(got[q], dtype=torch.float64) - torch.as_tensor(
             want[q], dtype=torch.float64)
         errs[q] = float((d.abs().cpu() / torch.as_tensor(
@@ -2575,6 +2643,790 @@ def sample_phase(gp, dev):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the rest of the GP models
+# ---------------------------------------------------------------------------
+
+def plain64_kernel(dev, name, gamma, d, nu=1.5):
+    """The float64 reference model's kernel on the card: a KernelFunction in
+    float64 whose atom evaluates the plain version (`gram_plain`,
+    `gram_l1_plain`: plain torch ops, differentiable, no hand kernel), so
+    the port's own model code runs in float64 around it."""
+    k = KernelFunction(kernel_name=name, gamma=gamma, nu=nu, d=d, device=dev,
+                       dtype=torch.float64)
+    fam = "se" if name == "squared_exponential" else "matern"
+
+    def fn(p, a, b):
+        g, kappa = p["gamma"].to(a.dtype), p.get("kappa", 1.0)
+        if name == "laplace":
+            return gram_l1_plain(a, b, 1.0 / (g * g), kappa)
+        return gram_plain(a / g, b / g, kappa, fam, nu)
+
+    k._atoms[0].fn = fn
+    return k
+
+
+def dense_solve(y, s, kernel_part):
+    """(NLL, log det A, L, α) of A = kernel_part() + s²I in float64 by a
+    Cholesky."""
+    y64 = y.double().reshape(-1)
+    n = y64.shape[0]
+    A = kernel_part()
+    A.diagonal().add_(s * s)
+    L, info = torch.linalg.cholesky_ex(A)
+    assert int(info) == 0, info
+    del A
+    alpha = torch.cholesky_solve(y64[:, None], L)[:, 0]
+    logdet = 2.0 * float(torch.log(L.diagonal()).sum())
+    nll = float(0.5 * y64 @ alpha) + 0.5 * logdet + 0.5 * n * math.log(
+        2.0 * math.pi)
+    return nll, logdet, L, alpha
+
+
+def dense_evidence_parts(x, y, s, probes, kernel_part, params):
+    """The dense float64 NLL, log det A and, per parameter, (label,
+    −½αᵀ∂Aα, ½tr(A⁻¹∂A), the Hutchinson estimator's σ over `probes`
+    probes), for A = kernel_part() + s²I; `params` is [(label, fn)] with
+    fn() the fresh (n, n) ∂A/∂θ; the noise's row last."""
+    nll, logdet, L, alpha = dense_solve(y, s, kernel_part)
+    Ainv = torch.cholesky_inverse(L)
+    del L
+    out = []
+    for label, fn in params:
+        dA = fn()
+        quad = float(-0.5 * alpha @ (dA @ alpha))
+        B = Ainv @ dA
+        del dA
+        half_tr = 0.5 * float(B.diagonal().sum())
+        S2 = B + B.T
+        del B
+        var = 0.5 * (float(torch.linalg.vector_norm(S2)) ** 2
+                     - float(S2.diagonal().square().sum()))
+        del S2
+        out.append((label, quad, half_tr, 0.5 * math.sqrt(var / probes)))
+    # σ: ∂A/∂σ = 2σI, so B = 2σA⁻¹ and B + Bᵀ = 4σA⁻¹
+    var = 0.5 * 16 * s * s * (float(torch.linalg.vector_norm(Ainv)) ** 2
+                              - float(Ainv.diagonal().square().sum()))
+    out.append(("noise", float(-s * alpha @ alpha),
+                s * float(Ainv.diagonal().sum()),
+                0.5 * math.sqrt(var / probes)))
+    del Ainv
+    torch.cuda.empty_cache()
+    return nll, logdet, out
+
+
+def general_kernel(dev, case):
+    """15.1's kernels: the product SE(0.5)·Matérn-5/2(0.8), or Laplace(2)."""
+    if case == "laplace":
+        return KernelFunction(kernel_name="laplace", gamma=LAPLACE_GAMMA,
+                              d=D, device=dev)
+    (_, _, g0), (_, nu, g1) = GENERAL_ATOMS
+    return (KernelFunction(kernel_name="squared_exponential", gamma=g0, d=D,
+                           device=dev)
+            * KernelFunction(kernel_name="matern", gamma=g1, nu=nu, d=D,
+                             device=dev))
+
+
+def general_dense(x, case, gammas=None):
+    """(kernel_part, params) of `dense_evidence_parts` for 15.1's kernels
+    (κ = 1) at `gammas` (default the kernels' own), labels as the port's
+    gradient dict ("0.gamma", …)."""
+    x64 = x.double()
+    if case == "laplace":
+        g = LAPLACE_GAMMA if gammas is None else gammas[0]
+        return (lambda: atom_k64(x64, "laplace", g, 1.0),
+                [("0.gamma", lambda: atom_k64(x64, "laplace", g, 1.0,
+                                              "gamma")),
+                 ("0.kappa", lambda: atom_k64(x64, "laplace", g, 1.0))])
+    (f0, nu0, g0), (f1, nu1, g1) = GENERAL_ATOMS
+    if gammas is not None:
+        g0, g1 = gammas
+
+    def prod(d0=None, d1=None):
+        K = atom_k64(x64, f0, g0, 1.0, d0, nu0)
+        return K.mul_(atom_k64(x64, f1, g1, 1.0, d1, nu1))
+
+    return (prod,
+            [("0.gamma", lambda: prod(d0="gamma")), ("0.kappa", prod),
+             ("1.gamma", lambda: prod(d1="gamma")), ("1.kappa", prod)])
+
+
+def general_evidence(kernel, x, y, n_label):
+    """15.1's call: the general evidence gradient, counted, with the peak
+    device memory it adds over what was held before it."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    (_, grads), wall, counts = counted(
+        lambda: bbmm.evidence_value_and_grad_general(
+            kernel, x, y, noise=LAZY_S, chunk=GENERAL_CHUNK,
+            probes=EVIDENCE_PROBES, cg_tol=1e-6, cg_maxiter=500,
+            probe_tol=1e-6, probe_maxiter=500, precond_rank=512,
+            compute_value=False,
+            generator=torch.Generator(device=x.device).manual_seed(13)))
+    peak = (torch.cuda.max_memory_allocated() - held) / 2**30
+    print(f"    {n_label}: {wall!r} s, peak device memory above the "
+          f"{held / 2**30!r} GiB held before {peak!r} GiB; launches "
+          f"{nonzero(counts)}")
+    return grads, wall, counts, peak
+
+
+def nonzero(counts):
+    return {k: v for k, v in counts.items() if v}
+
+
+def scaled_gram_check(label, xs, ys, fam, nu):
+    """gram at a phase-15 shape (scaled coordinates) against its plain
+    version in f32 and float64 (phase 2's bars). Returns the f32 error."""
+    K = gram_scaled(xs, ys, 1.0, fam, nu)
+    e = float((K - gram_plain(xs, ys, 1.0, fam, nu)).abs().max())
+    e64 = float((K.double() - gram_plain(xs.double(), ys.double(), 1.0, fam,
+                                         nu)).abs().max())
+    del K
+    torch.cuda.empty_cache()
+    print(f"    gram {fam}{'' if fam == 'se' else nu} {label} "
+          f"{xs.shape[0]}x{ys.shape[0]} d={xs.shape[1]}: max abs err {e!r} "
+          f"(plain f32), {e64!r} (plain f64); bars {GRAM_F32_ATOL}, "
+          f"{GRAM_ATOL}")
+    assert e <= GRAM_F32_ATOL and e64 <= GRAM_ATOL, (label, fam, e, e64)
+    return e
+
+
+def gram_l1_check(label, x, y, gamma):
+    """gram_l1 at a phase-15 shape against its plain version."""
+    inv = 1.0 / gamma ** 2
+    K = gram_l1(x, y, inv, 1.0)
+    e = float((K - gram_l1_plain(x, y, inv, 1.0)).abs().max())
+    e64 = float((K.double() - gram_l1_plain(x.double(), y.double(), inv,
+                                            1.0)).abs().max())
+    del K
+    print(f"    gram_l1 {label} {x.shape[0]}x{y.shape[0]} d={x.shape[1]}: "
+          f"max abs err {e!r} (plain f32), {e64!r} (plain f64); bar "
+          f"{GRAM_L1_ATOL}")
+    assert e <= GRAM_L1_ATOL and e64 <= GRAM_L1_ATOL, (label, e, e64)
+    return e
+
+
+def gram_df_check(label, a64, b64, fam, nu, gamma):
+    """gram_df at a shape (coordinates over γ) against its plain version,
+    error of the pair value hi + lo over its magnitude (bar GRAM_DF_RTOL).
+    Returns (max abs error, hi, lo)."""
+    xs, ys = a64 / gamma, b64 / gamma
+    hi, lo = gram_df_scaled(xs, ys, 1.0, fam, nu)
+    hp, lp = gram_df_plain(xs, ys, 1.0, fam, nu)
+    ref = hp.double() + lp.double()
+    diff = (hi.double() + lo.double() - ref).abs()
+    e, rel = float(diff.max()), float((diff / ref.abs().clamp_min(1e-300))
+                                      .max())
+    del hp, lp, ref, diff
+    torch.cuda.empty_cache()
+    print(f"    gram_df {fam}{'' if fam == 'se' else nu} {label} "
+          f"{a64.shape[0]}x{b64.shape[0]} d={a64.shape[1]}: max abs err "
+          f"{e!r}, max rel err {rel!r} (bar {GRAM_DF_RTOL})")
+    assert rel <= GRAM_DF_RTOL, (label, fam, rel)
+    return e, hi, lo
+
+
+def gemv_df_check(label, hi, lo, v, vl):
+    """gemv_df on the pair (hi, lo) and (v, vl) against its plain version,
+    error over Σ|A||v| (bar GEMV_DF_RTOL). Returns the max abs error."""
+    oh, ol = gemv_df(hi, lo, v, vl)
+    ph, pl = gemv_df_plain(hi, lo, v, vl)
+    scale = (hi.double() + lo.double()).abs() @ (
+        v.double() + vl.double()).abs()
+    d_ = (oh.double() + ol.double() - ph.double() - pl.double()).abs()
+    e, rel = float(d_.max()), float((d_ / scale.clamp_min(1e-300)).max())
+    print(f"    gemv_df {label} {hi.shape[0]}x{hi.shape[1]}: max abs err "
+          f"{e!r}, max err / sum|A||v| {rel!r} (bar {GEMV_DF_RTOL})")
+    assert rel <= GEMV_DF_RTOL, (label, rel)
+    return e
+
+
+def function_x_check(label, xa, xb, gamma, v_seed=5):
+    """`_Gram`'s (SE) first and second derivatives of Σ W∘K in the points
+    xa (the gradient, and its derivative along v), as ucb_optimize and the
+    gradient helpers take them, f32 on the card against float64 autograd of
+    the plain version; each entry within 2·matvec_rtol(m) of its terms'
+    absolute sum: with k' = −K/2, k'' = K/4 in sq and e = |x̃ᵢ| + |ỹⱼ|,
+    Σⱼ|W|2|k'|e_c (first) and Σⱼ|W|(4|k''|e_c Σ_c'e_c'|v_c'| + 2|k'||v_c|)
+    (second), over γ and γ²."""
+    dev = xa.device
+    n, m = xa.shape[0], xb.shape[0]
+    gen = torch.Generator(device=dev).manual_seed(v_seed)
+    W = torch.rand((n, m), generator=gen, device=dev)
+    v = torch.randn(xa.shape, generator=gen, device=dev)
+
+    def derivs(dtype, plain):
+        a = xa.to(dtype).clone().requires_grad_()
+        b = xb.to(dtype)
+        K = (gram_plain(a / gamma, b / gamma, 1.0, "se") if plain
+             else gram_se(a, b, gamma, 1.0))
+        (g,) = torch.autograd.grad((W.to(dtype) * K).sum(), a,
+                                   create_graph=True)
+        (h,) = torch.autograd.grad((g * v.to(dtype)).sum(), a)
+        return g.detach().double(), h.double()
+
+    (g32, h32), (g64, h64) = derivs(torch.float32, False), derivs(
+        torch.float64, True)
+    with torch.no_grad():
+        a64, b64 = xa.double() / gamma, xb.double() / gamma
+        K = torch.exp(-0.5 * torch.cdist(a64, b64).square_())
+        WK = W.double() * K
+        del K
+        e = a64.abs()[:, None, :] + b64.abs()[None, :, :]       # (n, m, d)
+        s1 = (WK[:, :, None] * e).sum(1) / gamma                  # 2|k'| = K
+        ev = (e * v.double().abs()[:, None, :]).sum(2)            # (n, m)
+        s2 = ((WK * ev)[:, :, None] * e).sum(1) + WK.sum(1)[:, None] * \
+            v.double().abs()
+        s2 = s2 / gamma ** 2
+        del e, ev, WK
+    e1 = float(((g32 - g64).abs() / s1).max())
+    e2 = float(((h32 - h64).abs() / s2).max())
+    bar = 2 * matvec_rtol(m)
+    print(f"    {label}: _Gram's gradient in the points and its derivative "
+          f"along v, f32 against float64 autograd, max |Δ| / scale {e1!r}, "
+          f"{e2!r} (bar {bar!r})")
+    assert e1 <= bar and e2 <= bar, (label, e1, e2)
+    return max(e1, e2)
+
+
+def product_residual(x, y, alpha, gammas, s, chunk=GENERAL_CHUNK):
+    """‖y − (K + s²I)α‖/‖y‖ of 15.2's product kernel in float64, by plain
+    ops one row chunk at a time (no kernel under test)."""
+    (f0, nu0, _), (f1, nu1, _) = GENERAL_ATOMS
+    x64, a64 = x.double(), alpha.double().reshape(-1)
+    y64 = y.double().reshape(-1)
+    r = y64 - s * s * a64
+    for r0 in range(0, x64.shape[0], chunk):
+        rows = x64[r0:r0 + chunk]
+        K = (gram_plain(rows / gammas[0], x64 / gammas[0], 1.0, f0, nu0)
+             * gram_plain(rows / gammas[1], x64 / gammas[1], 1.0, f1, nu1))
+        r[r0:r0 + chunk] -= K @ a64
+        del K
+    return float(torch.linalg.vector_norm(r) / torch.linalg.vector_norm(y64))
+
+
+def general_phase(dev):
+    """15.1 and 15.2: bbmm's general tier at n = LAZY_N."""
+    out = {}
+    xl, yl, _ = bench_data(dev, LAZY_N, LAZY_T)
+    print("  15.1 the general evidence gradient (bbmm.evidence_value_and_"
+          f"grad_general), n = {LAZY_N}, d = {D}, s = {LAZY_S}, "
+          f"{EVIDENCE_PROBES} probes, chunk {GENERAL_CHUNK}, rank 512")
+    for case in ("product", "laplace"):
+        kernel = general_kernel(dev, case)
+        grads, wall, counts, peak = general_evidence(kernel, xl, yl[:, 0],
+                                                     f"n = {LAZY_N}")
+        t0 = time.perf_counter()
+        nll64, _, exact = dense_evidence_parts(
+            xl, yl, LAZY_S, EVIDENCE_PROBES, *general_dense(xl, case))
+        print(f"    {case}: dense float64 reference "
+              f"{time.perf_counter() - t0!r} s, NLL {nll64!r}")
+        rows = []
+        for label, quad, half_tr, std in exact:
+            if label == "noise":
+                g = float(grads["noise"])
+            else:
+                ak, pk = label.split(".")
+                g = float(grads["params"][ak][pk])
+            g64 = quad + half_tr
+            bar = HUTCH_SIGMAS * std + GRAD_RTOL * abs(g64)
+            print(f"    {case} {label}: gradient {g!r} against {g64!r} "
+                  f"(|Δ| {abs(g - g64)!r}, bar {bar!r} = {HUTCH_SIGMAS}·"
+                  f"{std!r} + {GRAD_RTOL}·|g|)")
+            assert abs(g - g64) <= bar, (case, label, g, g64, bar)
+            rows.append((label, g, g64, bar))
+        need = ("gram",) if case == "product" else ("gram_l1",)
+        assert all(counts[k] > 0 for k in need), counts
+        out[case] = {"rows": rows, "wall_s": wall, "peak_gib": peak,
+                     "launches": nonzero(counts)}
+    small = GENERAL_SMALL_N
+    _, wall_s, _, peak_s = general_evidence(
+        general_kernel(dev, "product"), xl[:small], yl[:small, 0],
+        f"product at n = {small}")
+    growth = out["product"]["peak_gib"] / peak_s
+    print(f"    peak growth from n = {small} to {LAZY_N}: {growth!r}x (bar "
+          f"{GENERAL_PEAK_GROWTH}x; n² would grow 4x, 4 GiB a (n, n) f32 "
+          f"product at {LAZY_N})")
+    assert growth <= GENERAL_PEAK_GROWTH, growth
+    out["peak_small_gib"], out["peak_growth"] = peak_s, growth
+    print("    the hand Grams at the general tier's shapes, chunk rows "
+          f"against all {LAZY_N} points:")
+    rows, cols = xl[:GENERAL_CHUNK], xl
+    out["function_err"] = max(
+        gram_fn_check(f"{fam}{'' if fam == 'se' else nu} chunk", rows, g,
+                      False, 31 + i, y=cols, fam=fam, nu=nu)
+        for i, (fam, nu, g) in enumerate(GENERAL_ATOMS))
+    out["function_err"] = max(out["function_err"], gram_fn_check(
+        "laplace chunk", rows, LAPLACE_GAMMA, True, 33, y=cols))
+
+    print(f"  15.2 IterativeGP(lazy=True).optimize_params on the product, "
+          f"n = {LAZY_N}, {GENERAL_FIT_STEPS} Adam steps")
+    kernel = general_kernel(dev, "product")
+    gp = IterativeGP(kernel, s=LAZY_S, lazy=True, precision="double",
+                     var_refine=0)
+    _, fit_s, _ = counted(lambda: gp.fit_gp(xl, yl))
+    s0 = gp.s
+    nll0 = dense_solve(yl, s0, general_dense(xl, "product")[0])[0]
+    torch.cuda.empty_cache()
+    fit, wall, counts = counted(lambda: gp.optimize_params(
+        steps=GENERAL_FIT_STEPS, tol=0.0))
+    gammas = [float(kernel.params_dict[k]["gamma"]) for k in ("0", "1")]
+    nll1 = dense_solve(yl, gp.s, general_dense(xl, "product", gammas)[0])[0]
+    torch.cuda.empty_cache()
+    resid = product_residual(xl, yl, gp._A_df.double().sum(1), gammas, gp.s)
+    single = IterativeGP(kernel, s=gp.s, lazy=True)
+    single.fit_gp(xl, yl)
+    resid_single = product_residual(xl, yl, single.A, gammas, gp.s)
+    print(f"    fit {fit_s!r} s; optimize_params {wall!r} s with the refit, "
+          f"{wall / GENERAL_FIT_STEPS!r} s a step; γ {[g for *_, g in GENERAL_ATOMS]}"
+          f" -> {gammas}, κ -> {[float(kernel.params_dict[k]['kappa']) for k in ('0', '1')]},"
+          f" σ {s0!r} -> {gp.s!r}; dense float64 NLL {nll0!r} -> {nll1!r}; "
+          f"refit (precision='double') {gp.fit_status}; its float64 "
+          f"residual {resid!r} (bar {LAZY_RESIDUAL_MAX}); the same refit in "
+          f"f32 {single.fit_status['cg_residual']!r} by its CG, "
+          f"{resid_single!r} in float64 (bar {F32_REFIT_RESIDUAL_MAX}); "
+          f"launches {nonzero(counts)}")
+    assert fit["steps_run"] == GENERAL_FIT_STEPS, fit
+    assert nll1 < nll0, (nll0, nll1)
+    assert resid <= LAZY_RESIDUAL_MAX, resid
+    assert resid_single <= F32_REFIT_RESIDUAL_MAX, resid_single
+    assert all(counts[k] > 0 for k in ("gram", "gram_df", "gemv_df")), counts
+    print("    the double tier's kernels at the refit's row strips "
+          f"({gp.df_chunk} rows against all {LAZY_N} points):")
+    x64, c = xl.double(), gp.df_chunk
+    for (fam, nu, _), g in zip(GENERAL_ATOMS, gammas):
+        gram_df_check("strip", x64[:c], x64, fam, nu, g)
+    Kh, Kl = df_gram_from_desc(gp.kernel_object, {}, xl[:c], xl,
+                               gp._df_desc())
+    vh, vl = gp._A_df[:, 0].contiguous(), gp._A_df[:, 1].contiguous()
+    gemv_df_check("product strip", Kh, Kl, vh, vl)
+    del Kh, Kl, x64
+    out["hyperfit"] = {"wall_s": wall, "step_s": wall / GENERAL_FIT_STEPS,
+                       "gammas": gammas, "noise": gp.s, "nll0": nll0,
+                       "nll": nll1, "residual": resid,
+                       "residual_f32_refit": resid_single,
+                       "cg_residual_f32_refit":
+                           single.fit_status["cg_residual"],
+                       "launches": nonzero(counts)}
+    del gp, single, xl, yl
+    torch.cuda.empty_cache()
+    return out
+
+
+def df_variance_phase(dev, defaults_residual):
+    """15.3: IterativeGP(precision="double") with its default var_refine=1
+    on phase 8's system against the dense float64 posterior."""
+    xl, yl, xtl = bench_data(dev, LAZY_N, LAZY_T)
+    mu64, var64, _ = reference_f64(xl, yl, xtl, s=LAZY_S,
+                                   kern=lazy_kernel_matrix,
+                                   prior_var=float(len(LAZY_ATOMS)))
+    torch.cuda.empty_cache()
+    gp = IterativeGP(lazy_kernel(dev), s=LAZY_S, lazy=True,
+                     precision="double")
+    assert gp.var_refine == 1
+    _, fit_s, fit_counts = counted(lambda: gp.fit_gp(xl, yl))
+    (mu, sd), ms_s, counts = counted(lambda: gp.mean_std(xtl))
+    mean_err, vmax, vmed = posterior_errors(mu, sd, mu64, var64)
+    print(f"  15.3 df-refined matrix-free variance, n = {LAZY_N}, t = "
+          f"{LAZY_T}: mean rel err {mean_err!r} (bar {LAZY_DOUBLE_MEAN_RTOL}),"
+          f" var rel err max {vmax!r} (bar {REFINED_VAR_MAX_RTOL}) median "
+          f"{vmed!r}; fit {fit_s!r} s, mean_std {ms_s!r} s; fit_status "
+          f"{gp.fit_status}; launches {nonzero(counts)}")
+    assert mean_err <= LAZY_DOUBLE_MEAN_RTOL, mean_err
+    assert vmax <= REFINED_VAR_MAX_RTOL, vmax
+    assert all(counts[k] > 0 for k in ("gram_df", "qform_df", "gram_matmat")), \
+        counts
+    print("    the kernels at _std_exact_df's shapes:")
+    (f0, nu0, g0), (f1, nu1, g1) = LAZY_ATOMS
+    c = gp.df_chunk
+    x64, xt64 = xl.double(), xtl.double()
+    gram_df_check("strip × test", x64[:c], xt64, f0, nu0, g0)
+    gram_df_check("strip × train", x64[:c], x64, f1, nu1, g1)
+    Th, Tl = df_gram_from_desc(gp.kernel_object, {}, xl[:c], xl,
+                               gp._df_desc())
+    Bh, Bl = df_gram_from_desc(gp.kernel_object, {}, xl, xtl[:128],
+                               gp._df_desc())
+    W = 0.5 * Bh                 # the scale of a solve (K + s²I)⁻¹B
+    e, rel = qform_error(Th, Tl, W, W[:c], Bh[:c], Bl[:c])
+    print(f"    qform_df strip c={min(c, LAZY_N)} n={LAZY_N} t=128: max abs err {e!r}, "
+          f"max err / scale {rel!r} (bar {QFORM_RTOL})")
+    assert rel <= QFORM_RTOL, rel
+    print(f"  15.3 the 65536 defaults fit of phase 9, CG not segmented: "
+          f"float64 residual {defaults_residual!r} (bar {LAZY_RESIDUAL_MAX})")
+    assert defaults_residual <= LAZY_RESIDUAL_MAX, defaults_residual
+    del gp, Th, Tl, Bh, Bl, W, xl, yl, xtl, mu64, var64
+    torch.cuda.empty_cache()
+    return {"mean": mean_err, "var_max": vmax, "var_median": vmed,
+            "fit_s": fit_s, "mean_std_s": ms_s, "launches": nonzero(counts),
+            "fit_launches": nonzero(fit_counts),
+            "defaults_65k_residual": defaults_residual, "qform_err": rel}
+
+
+def robust_phase(dev):
+    """15.4: the robust losses at n = ROBUST_N on bench rows with outliers,
+    then the MAP evidence at config 1."""
+    out = {}
+    x, y, xt = bench_data(dev)
+    x, y_clean = x[:ROBUST_N], y[:ROBUST_N]
+    idx = np.random.default_rng(1).choice(
+        ROBUST_N, int(ROBUST_FRACTION * ROBUST_N), replace=False)
+    y_bad = y_clean.clone()
+    y_bad[torch.as_tensor(idx, device=dev)] += ROBUST_SHIFT
+    mu_clean, _, _ = reference_f64(x, y_clean, xt)
+    gp_kw = dict(gamma=GAMMA, s=S, d=D, lam=ROBUST_LAM)
+    sq = GaussianProcess(device=dev, **gp_kw)
+    sq.fit_gp(x, y_bad)
+    err_sq = float((sq.mean(xt)[:, 0].double() - mu_clean).abs().max())
+    print(f"  15.4 robust losses, n = {ROBUST_N}, d = {D}, {len(idx)} targets "
+          f"shifted by {ROBUST_SHIFT}, lam = {ROBUST_LAM}; the squared loss's "
+          f"mean is {err_sq!r} from the clean-data float64 posterior")
+    for loss in ROBUST_LOSSES:
+        gp = GaussianProcess(device=dev, loss=loss, **gp_kw)
+        _, fit_s, fit_counts = counted(lambda: gp.fit_gp(x, y_bad))
+        (mu, sd), ms_s, ms_counts = counted(lambda: gp.mean_std(xt))
+        assert mu.shape == sd.shape == (NTEST, 1)
+        assert bool(torch.isfinite(mu).all() and torch.isfinite(sd).all())
+        gp64 = GaussianProcess(kernel=plain64_kernel(dev, "squared_exponential",
+                                                     GAMMA, D),
+                               loss=loss, s=S, lam=ROBUST_LAM)
+        t0 = time.perf_counter()
+        gp64.fit_gp(x, y_bad)
+        ref_s = time.perf_counter() - t0
+        obj = gp64._loss_objective(gp64.kernel_object.gram(gp64.x), gp64.y)
+        v64 = float(obj(gp64.A[:, 0]))
+        v32 = float(obj(gp.A[:, 0].double()))
+        gap = (v32 - v64) / abs(v64)
+        err = float((mu[:, 0].double() - mu_clean).abs().max())
+        print(f"    {loss}: fit {fit_s!r} s (L-BFGS {gp.robust_status}), "
+              f"mean_std on {NTEST} points {ms_s!r} s; the float64 "
+              f"model's fit {ref_s!r} s ({gp64.robust_status}); its objective"
+              f" at the f32 alpha {v32!r} against {v64!r} at its own "
+              f"(relative {gap!r}, bar {ROBUST_OBJ_RTOL}); mean "
+              f"{err!r} from the clean posterior; launches fit "
+              f"{nonzero(fit_counts)}, mean_std {nonzero(ms_counts)}")
+        assert gap <= ROBUST_OBJ_RTOL, (loss, v32, v64)
+        assert fit_counts["gram"] > 0 and ms_counts["gram"] > 0
+        if loss == "huber":
+            assert err < err_sq, (err, err_sq)
+        out[loss] = {"fit_s": fit_s, "mean_std_s": ms_s,
+                     "lbfgs": gp.robust_status, "lbfgs64": gp64.robust_status,
+                     "objective_gap": gap, "clean_mean_err": err,
+                     "launches": nonzero({k: fit_counts[k] + ms_counts[k]
+                                          for k in fit_counts})}
+        del gp, gp64, mu, sd
+    out["squared_clean_mean_err"] = err_sq
+    print("    the Gram kernel at the robust fit's shapes:")
+    xs, xts = x / GAMMA, xt / GAMMA
+    scaled_gram_check("fit", xs, xs, "se", 1.5)
+    scaled_gram_check("predict", xts, xs, "se", 1.5)
+    del x, y, xt, y_clean, y_bad, mu_clean
+    torch.cuda.empty_cache()
+
+    x1, y1 = config1_data()
+    gp = GaussianProcess(loss="huber", device=dev, **CONFIG1_GP)
+    gp.fit_gp(x1, y1)
+    gp64 = GaussianProcess(kernel=plain64_kernel(dev, "squared_exponential",
+                                                 CONFIG1_GP["gamma"], 1),
+                           loss="huber", s=CONFIG1_GP["s"])
+    gp64.fit_gp(x1, y1)
+    rows = []
+    for gamma in MAP_GAMMAS:
+        with inner_argmin() as inner64:
+            v64, d64 = map_evidence(gp64, gamma, dev)
+        (v, d), wall, counts = counted(lambda: map_evidence(gp, gamma, dev))
+        with inner_argmin(inner64.results[0].x):
+            (vs, ds), _, shared_counts = counted(
+                lambda: map_evidence(gp, gamma, dev))
+        rv, rd = abs(v - v64) / abs(v64), abs(d - d64) / abs(d64)
+        rvs, rds = abs(vs - v64) / abs(v64), abs(ds - d64) / abs(d64)
+        print(f"    MAP evidence (huber), config 1, γ = {gamma}: {v!r} against"
+              f" float64 {v64!r} (rel {rv!r}, bar {MAP_RTOL}); d/dγ {d!r} "
+              f"against {d64!r} (rel {rd!r}, not held: each at its own "
+              f"unconverged α̂); {wall!r} s; at the float64 model's α̂: "
+              f"{vs!r} (rel {rvs!r}, bar {MAP_RTOL}), d/dγ {ds!r} (rel "
+              f"{rds!r}, bar {MAP_SHARED_GRAD_RTOL}); launches "
+              f"{nonzero(counts)}, {nonzero(shared_counts)}")
+        assert rv <= MAP_RTOL and rvs <= MAP_RTOL, (gamma, v, vs, v64)
+        assert rds <= MAP_SHARED_GRAD_RTOL, (gamma, ds, d64)
+        assert counts["gram"] > 0 and shared_counts["gram"] > 0, counts
+        rows.append({"gamma": gamma, "value": v, "value64": v64, "grad": d,
+                     "grad64": d64, "value_shared": vs, "grad_shared": ds,
+                     "wall_s": wall, "launches": nonzero(counts)})
+    out["map_evidence"] = rows
+    out["map_function_err"] = gram_fn_check(
+        "config 1 gram", torch.as_tensor(x1, dtype=torch.float32, device=dev),
+        MAP_GAMMAS[-1], False, 34)
+    return out
+
+
+def map_evidence(model, gamma, dev):
+    """`log_marginal` of a robust-loss model at the bandwidth γ and its
+    derivative in γ (float64 values)."""
+    g = torch.tensor(gamma, dtype=torch.float64, device=dev,
+                     requires_grad=True)
+    v = model.log_marginal(model.kernel_object, {"0": {"gamma": g}})
+    (d,) = torch.autograd.grad(v, g)
+    return float(v.detach()), float(d)
+
+
+class inner_argmin:
+    """Within the block, the L-BFGS runs of the port's GaussianProcess
+    (`exact_gp.minimize_lbfgs`: the robust alpha, the MAP evidence's inner
+    argmin, volume_mean's logistic β) are kept in `.results`; with `x`
+    given, each returns x (unconverged, 0 iterations) without running."""
+
+    def __init__(self, x=None):
+        self.x, self.results = x, []
+
+    def __enter__(self):
+        self.real = exact_gp.minimize_lbfgs
+
+        def run(fun, x0, **kw):
+            res = (self.real(fun, x0, **kw) if self.x is None else
+                   LBFGSResult(self.x.clone(), fun(self.x).detach(), 0,
+                               False))
+            self.results.append(res)
+            return res
+
+        exact_gp.minimize_lbfgs = run
+        return self
+
+    def __exit__(self, *exc):
+        exact_gp.minimize_lbfgs = self.real
+
+
+class same_draws:
+    """Within the block, `torch.rand` returns `U` (cast to the dtype asked
+    for): the float64 reference model's ucb_optimize starts where the
+    card's started."""
+
+    def __init__(self, U):
+        self.U = U
+
+    def __enter__(self):
+        self.real = torch.rand
+        U = self.U
+        torch.rand = lambda *a, dtype=None, device=None, **k: U.to(
+            dtype=dtype or U.dtype, device=device or U.device)
+
+    def __exit__(self, *exc):
+        torch.rand = self.real
+
+
+def bo_phase(dev):
+    """15.5-15.7 on phase 3's GP (n = 16384): ucb_optimize, the gradient
+    helpers and sample_and_max against the float64 model; then
+    sample_iteratively_max without a grid at config 1."""
+    out = {}
+    x, y, xt = bench_data(dev)
+    bounds = [[-1.0, 1.0]] * D
+    gp = GaussianProcess(gamma=GAMMA, s=S, d=D, bounds=bounds, device=dev)
+    gp.fit_gp(x, y)
+    gp64 = GaussianProcess(kernel=plain64_kernel(dev, "squared_exponential",
+                                                 GAMMA, D),
+                           s=S, bounds=bounds)
+    gp64.fit_gp(x, y)
+    U = torch.rand((UCB_MULTISTART, D), generator=torch.Generator(
+        device=dev).manual_seed(7), device=dev)
+    with same_draws(U):
+        (pt, val), wall, counts = counted(lambda: gp.ucb_optimize(
+            multistart=UCB_MULTISTART))
+        t0 = time.perf_counter()
+        pt64, val64 = gp64.ucb_optimize(multistart=UCB_MULTISTART)
+        wall64 = time.perf_counter() - t0
+    with torch.no_grad():
+        at_pt = float(gp64._acquisition(pt.double()[None, :], 2.0, 1.0)[0])
+        R = torch.rand((UCB_RANDOM, D), generator=torch.Generator(
+            device=dev).manual_seed(8), dtype=torch.float64, device=dev)
+        best_random = float(gp64._acquisition(R * 2.0 - 1.0, 2.0, 1.0).max())
+    rv = abs(float(val) - float(val64)) / abs(float(val64))
+    rp = abs(at_pt - float(val)) / abs(at_pt)
+    print(f"  15.5 ucb_optimize, n = {N}, multistart {UCB_MULTISTART}: "
+          f"{wall!r} s, value {float(val)!r} at {pt.tolist()}; the float64 "
+          f"model from the same starts {float(val64)!r} ({wall64!r} s; rel "
+          f"{rv!r}, bar {UCB_RTOL}); float64 at the card's point {at_pt!r} "
+          f"(rel {rp!r}, bar {UCB_RTOL}); best of {UCB_RANDOM} random points "
+          f"{best_random!r}; launches {nonzero(counts)}")
+    assert rv <= UCB_RTOL and rp <= UCB_RTOL, (rv, rp)
+    assert at_pt >= best_random, (at_pt, best_random)
+    assert counts["gram"] > 0, counts
+    out["ucb"] = {"wall_s": wall, "value": float(val), "value64": float(
+        val64), "at_point64": at_pt, "best_random": best_random,
+        "launches": nonzero(counts)}
+    print("    the Gram kernel and its Function at ucb_optimize's shape:")
+    xs = x / GAMMA
+    starts = (U * 2.0 - 1.0)
+    scaled_gram_check("ucb", starts / GAMMA, xs, "se", 1.5)
+    out["function_x_err"] = function_x_check(
+        f"ucb {UCB_MULTISTART}x{N}", starts, x, GAMMA)
+
+    errs = {"grad_mu": 0.0, "hess_var": 0.0, "hess_mu": 0.0}
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    for p in xt[:GRAD_POINTS]:
+        got_v = gp.gradient_mean_var(p)
+        got_m = gp.mean_gradient_hessian(p, hessian=True)
+        want_v = gp64.gradient_mean_var(p.double())
+        want_m = gp64.mean_gradient_hessian(p.double(), hessian=True)
+        for key, g, w in (("grad_mu", got_v[0], want_v[0]),
+                          ("hess_var", got_v[1], want_v[1]),
+                          ("grad_mu", got_m[0], want_m[0]),
+                          ("hess_mu", got_m[1], want_m[1])):
+            assert g.shape == w.shape, (key, g.shape, w.shape)
+            e = float((g.double() - w).abs().max() / w.abs().max())
+            errs[key] = max(errs[key], e)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    print(f"  15.6 gradient_mean_var and mean_gradient_hessian at "
+          f"{GRAD_POINTS} points against the float64 model's autograd, max "
+          f"err / max|float64|: {errs} (bar {GRAD_HELPER_RTOL}); {wall!r} s "
+          f"with the float64 model's; launches {nonzero(counts)}")
+    assert max(errs.values()) <= GRAD_HELPER_RTOL, errs
+    assert counts["gram"] > 0, counts
+    out["gradient_helpers"] = {"errors": errs, "wall_s": wall,
+                               "launches": nonzero(counts)}
+    function_x_check(f"gradient helpers 1x{N}", xt[:1], x, GAMMA)
+    del gp64
+    torch.cuda.empty_cache()
+
+    grid = xt[:SAMPLE_MAX_T]
+    (pts, vals), wall, counts = counted(lambda: gp.sample_and_max(
+        grid, size=SAMPLE_MAX_SIZE,
+        generator=torch.Generator(device=dev).manual_seed(21)))
+    paths = gp.sample(grid, size=SAMPLE_MAX_SIZE,
+                      generator=torch.Generator(device=dev).manual_seed(21))
+    assert torch.allclose(vals, paths.max(dim=0).values, rtol=1e-6, atol=0)
+    assert pts.shape == (SAMPLE_MAX_SIZE, D)
+    print(f"  15.7 sample_and_max on {SAMPLE_MAX_T} points, "
+          f"{SAMPLE_MAX_SIZE} paths: {wall!r} s, maxima in "
+          f"[{float(vals.min())!r}, {float(vals.max())!r}], equal to sample's"
+          f" on the same seed; launches {nonzero(counts)}")
+    assert counts["gram_df"] > 0, counts
+    gram_df_check("sample", grid.double(), x.double(), "se", 1.5, GAMMA)
+    out["sample_and_max"] = {"wall_s": wall, "launches": nonzero(counts)}
+    del gp, x, y, xt
+    torch.cuda.empty_cache()
+
+    x1, y1 = config1_data()
+    gp = GaussianProcess(device=dev, **CONFIG1_GP)
+    gp.fit_gp(x1, y1)
+    x_old, A_old = gp.x, gp.A.clone()
+    (pt, val), wall, counts = counted(lambda: gp.sample_iteratively_max(
+        None, multistart=20, grid=100,
+        generator=torch.Generator(device=dev).manual_seed(22)))
+    drift = float((gp.A - A_old).abs().max() / A_old.abs().max())
+    print(f"    sample_iteratively_max without a grid, config 1 (multistart "
+          f"20, grid 100): {wall!r} s, point {pt.tolist()}, value "
+          f"{float(val)!r}; data restored ({tuple(gp.x.shape)}), alpha "
+          f"{drift!r} from the fit before; launches {nonzero(counts)}")
+    assert gp.x is x_old and gp.A.shape == A_old.shape and drift <= 1e-6
+    assert pt.shape == (1, 1) and bool(pt.abs().max() <= 1.0)
+    assert math.isfinite(float(val)) and counts["gram"] > 0
+    assert counts["gram_df"] > 0, counts
+    print("    the kernels at its shapes: the fit on the data and one "
+          "fantasised line, the line's df Grams")
+    g1 = CONFIG1_GP["gamma"]
+    line = torch.linspace(-1.0, 1.0, 100, dtype=torch.float64,
+                          device=dev)[:, None]
+    x64 = torch.as_tensor(x1, device=dev)
+    xa = torch.cat([x64, line]).float() / g1
+    scaled_gram_check("grid-free fit", xa, xa, "se", 1.5)
+    gram_df_check("grid-free line", line, x64, "se", 1.5, g1)
+    gram_df_check("grid-free line", line, line, "se", 1.5, g1)
+    out["sample_iteratively_max"] = {"wall_s": wall, "value": float(val),
+                                     "launches": nonzero(counts)}
+    return out
+
+
+def volume_phase(dev):
+    """15.8: volume_mean, relu and logistic, on config 1's data with two
+    band outliers, against the float64 model's run on the card."""
+    out = {}
+    x1, y1 = config1_data()
+    y1 = y1.copy()
+    for i, shift in VOLUME_BAND:
+        y1[i] += shift
+    xt = np.linspace(-1.0, 1.0, VOLUME_T)[:, None]
+    gp = GaussianProcess(device=dev, **CONFIG1_GP)
+    gp.fit_gp(x1, y1)
+    gp64 = GaussianProcess(kernel=plain64_kernel(
+        dev, "squared_exponential", CONFIG1_GP["gamma"], 1),
+        s=CONFIG1_GP["s"])
+    gp64.fit_gp(x1, y1)
+    for relax in ("relu", "logistic"):
+        mu, wall, counts = counted(lambda: gp.volume_mean(xt, relax=relax))
+        assert mu.shape == (VOLUME_T, 1) and bool(torch.isfinite(mu).all())
+        assert counts["gram_df"] > 0, counts
+        with inner_argmin() as run:
+            fixed = gp.volume_mean(xt, relax=relax, scale=VOLUME_SCALE)
+        t0 = time.perf_counter()
+        with inner_argmin() as run64:
+            mu64 = gp64.volume_mean(xt, relax=relax, scale=VOLUME_SCALE)
+        wall64 = time.perf_counter() - t0
+        err = float((fixed.double() - mu64).abs().max() / mu64.abs().max())
+        if relax == "relu":
+            held = f"(bar {VOLUME_RELU_RTOL})"
+            assert err <= VOLUME_RELU_RTOL, (relax, err)
+        else:
+            v, v64 = (float(r.results[-1].value) for r in (run, run64))
+            gap = (v - v64) / abs(v64)
+            held = (f"(not held); the objective at its fitted β {v!r} "
+                    f"against {v64!r} (relative {gap!r}, bar "
+                    f"{VOLUME_OBJ_RTOL})")
+            assert gap <= VOLUME_OBJ_RTOL, (relax, v, v64)
+            out["logistic_objective_gap"] = gap
+        print(f"  15.8 volume_mean ({relax}), config 1 with outliers at "
+              f"{[i for i, _ in VOLUME_BAND]}: {wall!r} s with the scale's "
+              f"bisection, max|μ| {float(mu.abs().max())!r}; at scale "
+              f"{VOLUME_SCALE} against the float64 model's ({wall64!r} s): "
+              f"max |μ − μ64| / max|μ64| {err!r} {held}; launches "
+              f"{nonzero(counts)}")
+        out[relax] = {"wall_s": wall, "wall64_fixed_scale_s": wall64,
+                      "err_fixed_scale": err, "launches": nonzero(counts)}
+    gram_df_check("volume_mean", torch.as_tensor(x1, device=dev),
+                  torch.as_tensor(x1, device=dev), "se", 1.5,
+                  CONFIG1_GP["gamma"])
+    return out
+
+
+def online_phase(dev):
+    """15.9: OnlineGP fed ONLINE_CAP bench rows one at a time, against the
+    batch GaussianProcess on the same points."""
+    x, y, xt = bench_data(dev)
+    x, y, xt = x[:ONLINE_CAP], y[:ONLINE_CAP], xt[:ONLINE_CAP]
+    kernel = KernelFunction(kernel_name="squared_exponential", gamma=GAMMA,
+                            d=D, device=dev)
+    og = OnlineGP(kernel, s=S, capacity=ONLINE_CAP, d=D)
+    ptrs = [b.data_ptr() for b in (og.x_buf, og.y_buf, og.L, og.alpha)]
+
+    def feed():
+        for i in range(ONLINE_CAP):
+            og.add_data_point(x[i], y[i])
+
+    _, wall, counts = counted(feed)
+    assert [b.data_ptr() for b in (og.x_buf, og.y_buf, og.L, og.alpha)] \
+        == ptrs, "an OnlineGP buffer moved"
+    gp = GaussianProcess(kernel=kernel, s=S)
+    gp.fit_gp(x, y)
+    (om, osd), (gm, gsd) = og.mean_std(xt), gp.mean_std(xt)
+    em = float((om - gm).abs().max() / gm.abs().max())
+    es = float(((osd - gsd).abs() / gsd).max())
+    print(f"  15.9 OnlineGP, capacity {ONLINE_CAP}, d = {D}: {ONLINE_CAP} "
+          f"add_data_point in {wall!r} s ({wall / ONLINE_CAP * 1e3!r} ms "
+          f"each), buffers never moved; against the batch GP: mean "
+          f"{em!r} (bar {ONLINE_MEAN_RTOL}), std {es!r} (bar "
+          f"{ONLINE_STD_RTOL}); launches {nonzero(counts)}")
+    assert em <= ONLINE_MEAN_RTOL and es <= ONLINE_STD_RTOL, (em, es)
+    assert counts["gram"] >= ONLINE_CAP, counts
+    xs = x / GAMMA
+    scaled_gram_check("online column", xs, xs[:1], "se", 1.5)
+    return {"adds_s": wall, "add_ms": wall / ONLINE_CAP * 1e3, "mean": em,
+            "std": es, "launches": nonzero(counts)}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
@@ -2805,19 +3657,18 @@ def main(argv=None) -> int:
           f"{stock_s!r} s (cold); fit_status {stock_status}; exact relative "
           f"residual (float64) {stock_resid!r}; launches {stock_counts}")
     assert math.isfinite(stock_resid) and stock_counts["gram_matvec"] > 0
-    # what the segmentation (a TPU workaround kept for parity) costs: the
-    # same defaults with the single-program solver
-    segment_above, iterative.SEGMENT_ABOVE = iterative.SEGMENT_ABOVE, LAZY_BIG_N
-    try:
-        _, unseg_s, _ = counted(lambda: gps.fit_gp(xb, yb))
-    finally:
-        iterative.SEGMENT_ABOVE = segment_above
-    unseg_status = dict(gps.fit_status)
-    unseg_resid = exact_residual(xb, yb, gps.A)
-    print(f"  the same defaults, CG not segmented: fit {unseg_s!r} s; "
-          f"fit_status {unseg_status}; exact relative residual (float64) "
-          f"{unseg_resid!r}")
-    del gps
+    (a_seg, seg_it, _), seg_s, seg_counts = counted(
+        lambda: iterative.cg_solve_segmented(
+            gps._matvec, yb.reshape(-1), M_inv=gps._M_inv, tol=gps.tol,
+            maxiter=gps.maxiter))
+    seg_resid = exact_residual(xb, yb, a_seg)
+    print(f"  cg_solve_segmented on the defaults' system: {seg_s!r} s, "
+          f"{seg_it} iterations, float64 residual {seg_resid!r} (bar "
+          f"{SEGMENTED_RESIDUAL_MAX}) beside the unsegmented fit's "
+          f"{stock_resid!r}; launches {nonzero(seg_counts)}")
+    assert seg_resid <= SEGMENTED_RESIDUAL_MAX, seg_resid
+    assert seg_counts["gram_matvec"] > 0, seg_counts
+    del gps, a_seg
     gpb = IterativeGP(kl, s=LAZY_S, lazy=True, precond_rank=LAZY_BIG_RANK)
     torch.cuda.reset_peak_memory_stats()
     _, big_cold_s, big_fit_counts = counted(lambda: gpb.fit_gp(xb, yb))
@@ -2833,6 +3684,27 @@ def main(argv=None) -> int:
     assert resid <= LAZY_RESIDUAL_MAX, resid
     assert big_fit_counts["gram_matvec"] > 0, big_fit_counts
     assert big_fit_counts["gram_matmat"] > 0, big_fit_counts
+    blk = gpb.kernel_object.cross(xtb[:128], xb).T.contiguous()
+    solves = {}
+    for label, solve in (("cg_solve_block", iterative.cg_solve_block),
+                         ("cg_solve_block_segmented",
+                          iterative.cg_solve_block_segmented)):
+        (X, it), wall, counts = counted(lambda: solve(
+            gpb._matmat, blk, M_inv=gpb._M_inv, tol=gpb.tol,
+            maxiter=gpb.maxiter))
+        solves[label] = (exact_residual(xb, blk, X), it, wall)
+        assert counts["gram_matmat"] > 0, (label, counts)
+        del X
+    (blk_resid, blk_it, blk_s), (seg_blk_resid, seg_blk_it, seg_blk_s) = (
+        solves.values())
+    print(f"  the exact variance's first 128 columns: cg_solve_block "
+          f"{blk_s!r} s, {blk_it} iterations, float64 residual (worst "
+          f"column) {blk_resid!r} (bar {LAZY_RESIDUAL_MAX}); "
+          f"cg_solve_block_segmented {seg_blk_s!r} s, {seg_blk_it} "
+          f"iterations, {seg_blk_resid!r} (bar {SEGMENTED_RESIDUAL_MAX})")
+    assert blk_resid <= LAZY_RESIDUAL_MAX, blk_resid
+    assert seg_blk_resid <= SEGMENTED_RESIDUAL_MAX, seg_blk_resid
+    del blk
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     (mu, sd), big_ms_s, big_ms_counts = counted(
@@ -2991,13 +3863,41 @@ def main(argv=None) -> int:
               "config1_laplace_hyperfit": fit_laplace["wall_s"],
               "ard_4096_hyperfit": fit_ard["wall_s"]}
 
+    print("== phase 15: the rest of the GP models (bbmm's general tier, the "
+          "df-refined matrix-free variance, robust losses, the BO helpers, "
+          "volume_mean, OnlineGP)")
+    phase15 = {"general": general_phase(dev)}
+    phase15["df_variance"] = df_variance_phase(dev, stock_resid)
+    phase15["robust"] = robust_phase(dev)
+    phase15 |= bo_phase(dev)
+    phase15["volume_mean"] = volume_phase(dev)
+    phase15["online_gp"] = online_phase(dev)
+    torch.cuda.empty_cache()
+    sub_counts = {
+        "15.1 product": phase15["general"]["product"]["launches"],
+        "15.1 laplace": phase15["general"]["laplace"]["launches"],
+        "15.2": phase15["general"]["hyperfit"]["launches"],
+        "15.3": phase15["df_variance"]["launches"],
+        "15.3 fit": phase15["df_variance"]["fit_launches"],
+        **{f"15.4 {loss}": phase15["robust"][loss]["launches"]
+           for loss in ROBUST_LOSSES},
+        "15.5": phase15["ucb"]["launches"],
+        "15.6": phase15["gradient_helpers"]["launches"],
+        "15.7": phase15["sample_and_max"]["launches"],
+        "15.7 grid-free": phase15["sample_iteratively_max"]["launches"],
+        "15.8 relu": phase15["volume_mean"]["relu"]["launches"],
+        "15.8 logistic": phase15["volume_mean"]["logistic"]["launches"],
+        "15.9": phase15["online_gp"]["launches"]}
+
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": REPLACES[name][0],
          "replaces": REPLACES[name][1], "tier": launches[name][0],
          "launches": launches[name][1], "max_abs_err": errs[name],
          "ms": ktimes[name][0], "plain_ms": ktimes[name][1],
          "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
-         "library_ms": library.get(name)}
+         "library_ms": library.get(name),
+         "phase15_launches": {sub: c[name] for sub, c in sub_counts.items()
+                              if c.get(name)}}
         for name in REPLACES
     ], "qform_df_dgemm_ms": qtimes[2], "gram_matmat_sgemm_16k_ms": sgemm_ms,
         "gram_matvec_matern32_ms": matvec_m32_ms,
@@ -3017,10 +3917,11 @@ def main(argv=None) -> int:
                       "lazy_32k_double_mean": lazy_double,
                       "lazy_65k_residual": resid,
                       "lazy_65k_defaults_residual": stock_resid,
-                      "lazy_65k_defaults_unsegmented_residual": unseg_resid},
+                      "lazy_65k_segmented": {
+                          "defaults_fit": seg_resid, "block": seg_blk_resid,
+                          "block_unsegmented": blk_resid}},
         "lazy_65k_fit_status": status,
         "lazy_65k_defaults_fit_status": stock_status,
-        "lazy_65k_defaults_unsegmented_fit_status": unseg_status,
         "lazy_32k_precond_basis": basis,
         "fast_chol": {**fast, "factor_ms": factor_ms,
                       "factor_peak_gib": peaks, "unjittered": unjittered},
@@ -3040,7 +3941,8 @@ def main(argv=None) -> int:
                                 "residual": opt_resid,
                                 "launches": opt_counts},
         "exact_hyperfit": {"config1": fit_se, "config1_laplace": fit_laplace,
-                           "ard_4096": fit_ard, "sample_256": sampled}}
+                           "ard_4096": fit_ard, "sample_256": sampled},
+        "phase15": phase15}
     print(json.dumps(record))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

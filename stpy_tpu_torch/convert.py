@@ -1,5 +1,5 @@
-"""Carry hyperparameters and fitted state (exact GP, iterative GP) from the
-JAX package to the port.
+"""Carry hyperparameters and fitted state (exact GP, iterative GP, online
+GP) from the JAX package to the port.
 
 Inputs are numpy arrays (or anything with ``__array__``, such as a JAX
 array); nothing here imports JAX.
@@ -78,3 +78,16 @@ def load_iterative_state(gp_port, x, y, A, A_df=None):
     gp_port.fit_status = None
     gp_port.fitted = True
     return gp_port
+
+
+def load_online_state(og_port, x_buf, y_buf, L, alpha, count):
+    """Load a JAX `OnlineGP`'s state (its capacity-padded buffers, the
+    block-diag(L_active, I) factor, alpha and the count) into a port
+    `OnlineGP` of the same capacity, written into the port's own buffers
+    so that they stay where they were allocated."""
+    for dst, src in ((og_port.x_buf, x_buf), (og_port.y_buf, y_buf),
+                     (og_port.L, L), (og_port.alpha, alpha)):
+        src = as_tensor(src, device=og_port.device, dtype=og_port.dtype)
+        dst.copy_(src.reshape(dst.shape))
+    og_port.count = int(count)
+    return og_port

@@ -216,6 +216,18 @@ class KernelFunction:
         for k, v in params_dict.items():
             self.params_dict[k].update({n: self._param(t) for n, t in v.items()})
 
+    def embed(self, x):
+        """A finite-dimensional embedding: only the linear kernel has one
+        (the kernel tail, ROADMAP Queue 1 item 7)."""
+        raise AttributeError(
+            "This type of kernel does not support a finite dimensional "
+            "embedding")
+
+    def get_basis_size(self):
+        raise AttributeError(
+            "This type of kernel does not support a finite dimensional "
+            "embedding")
+
     def description(self) -> str:
         lines = ["Kernel description:"]
         for i, atom in enumerate(self._atoms):

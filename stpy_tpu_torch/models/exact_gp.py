@@ -19,17 +19,26 @@ that lives on the CPU).
 It also fits hyperparameters on the evidence (`optimize_params`,
 `log_marginal`, through `Estimator.optimize_params_general`), differentiating
 through the hand Grams' autograd Functions, and samples the posterior
-(`sample`, `log_probability`).
+(`sample`, `log_probability`, `sample_and_max`, `sample_iteratively_max`).
+The robust losses (``loss="huber" | "svr" | "unif" | "unif_new"``) fit a MAP
+alpha by L-BFGS with the zoom line search and their evidence is the
+Laplace/Danskin construction (`_log_marginal_map`). The BO helpers
+(`ucb_optimize`, `gradient_mean_var`, `mean_gradient_hessian`) differentiate
+the posterior in the points through `ops.gram._Gram`; `volume_mean` fits the
+adversarially robust mean by FISTA or L-BFGS.
 
 PyTorch runs eagerly, so the JAX package's jitted closures become plain
-methods. Everything else the JAX model offers raises NotImplementedError
-naming the ROADMAP item that ports it.
+methods, and where the JAX method takes a `key` the port takes a
+`torch.Generator` (`generator=`). The manifold and group fits
+(`optimize_params(type="covariance" | "rots" | "groups")`) raise
+NotImplementedError naming the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from stpy_tpu_torch.config import as_tensor, default_jitter
@@ -45,11 +54,21 @@ from stpy_tpu_torch.linalg import (
     chol_jittered,
     logdet_from_chol,
     safe_cholesky,
+    tri_solve,
     tri_solve_blocked,
 )
 from stpy_tpu_torch.models.estimator import Estimator
 from stpy_tpu_torch.ops.gemv_df import gemv_df
 from stpy_tpu_torch.ops.qform_df import qform_refined
+from stpy_tpu_torch.opt.lbfgs import minimize_lbfgs
+from stpy_tpu_torch.opt.prox import fista_prox_backtracking
+from stpy_tpu_torch.opt.scalar import bisection
+
+
+def _softplus(x):
+    """log(1 + eˣ) over the whole range, as `jax.nn.softplus`:
+    `torch.nn.functional.softplus` returns x itself above its threshold."""
+    return torch.logaddexp(x, torch.zeros_like(x))
 
 
 class GaussianProcess(Estimator):
@@ -84,10 +103,6 @@ class GaussianProcess(Estimator):
             raise NotImplementedError(
                 "fold_noise is ROADMAP Queue 1 item 13 (ported once a memory "
                 "measurement on the card shows the need)"
-            )
-        if loss != "squared":
-            raise NotImplementedError(
-                f"robust loss {loss!r} is ROADMAP Queue 1 item 6"
             )
         # var_precision and qform_precision pick TPU matmul pass counts;
         # they are accepted for signature parity and have no effect here
@@ -144,6 +159,12 @@ class GaussianProcess(Estimator):
     # -- descriptions ----------------------------------------------------------
     def description(self):
         return self.kernel_object.description() + "\nlambda=" + str(self.s)
+
+    def embed(self, x):
+        return self.kernel_object.embed(x)
+
+    def get_basis_size(self):
+        return self.kernel_object.get_basis_size()
 
     def _tensor(self, v):
         return as_tensor(v, device=self.device, dtype=self.dtype)
@@ -241,6 +262,7 @@ class GaussianProcess(Estimator):
         x, y = self._set_data(x, y)
         if Sigma is None:
             self._store_fit(*self._fit(x, y))
+            self._fit_robust()
             return None
         if self._precision == "double":
             raise NotImplementedError(
@@ -252,7 +274,18 @@ class GaussianProcess(Estimator):
         K = self.kernel_object.gram(x) + Sigma.T @ Sigma
         L, ok, jitter = self._factor(K)
         self._store_fit(L, cho_solve(L, y), ok, jitter)
+        self._fit_robust()
         return None
+
+    def _fit_robust(self):
+        """A robust loss replaces the fitted alpha by its MAP alpha; the
+        double tier's df mean then reads it with a zero lo column (the 1e-6
+        story holds for the squared loss only)."""
+        if self.loss == "squared":
+            return
+        self.A = self._robust_alpha()
+        if self._precision == "double":
+            self._A_df = torch.cat([self.A, torch.zeros_like(self.A)], dim=1)
 
     def fit(self, x=None, y=None):
         if x is not None:
@@ -263,10 +296,71 @@ class GaussianProcess(Estimator):
     def fit_predict(self, x, y, xtest):
         """Fit, then the posterior (mu, std) at `xtest`; state is stored
         exactly as after fit_gp(x, y)."""
+        if self.loss != "squared":
+            self.fit_gp(x, y)
+            return self.mean_std(xtest)
         x, y = self._set_data(x, y)
         xtest = self._tensor(xtest)
         self._store_fit(*self._fit(x, y))
         return self._predict(xtest)
+
+    def add_data_point(self, x, y, Sigma=None):
+        x, y = self._tensor(x), self._tensor(y).reshape(-1, 1)
+        if self.x is not None:
+            x, y = torch.cat([self.x, x]), torch.cat([self.y, y])
+        self.fit_gp(x, y, Sigma=Sigma)
+
+    # -- robust-loss alpha fits (gauss_procc.py:211-289) -------------------------
+    def _loss_objective(self, K, y):
+        """The robust loss's objective in alpha (1-D) on the Gram K."""
+        s, lam = self.s, self.lam
+        yv = y.reshape(-1)
+        if self.loss == "huber":
+            delta = self.huber_delta
+
+            def obj(alpha):
+                Ka = K @ alpha
+                a = torch.abs((Ka - yv) / s)
+                hub = torch.where(a <= delta, 0.5 * a ** 2,
+                                  delta * (a - 0.5 * delta))
+                return torch.sum(hub) + lam * (alpha @ Ka)
+
+            return obj
+        if self.loss == "svr":
+            eps_i = self.svr_eps
+
+            def obj(alpha):
+                Ka = K @ alpha
+                r = torch.abs(Ka - yv) - eps_i
+                # a smoothed hinge (softplus sharpness 50)
+                return torch.sum(_softplus(50.0 * r) / 50.0) + lam * (
+                    alpha @ Ka)
+
+            return obj
+        if self.loss in ("unif", "unif_new"):
+            con = (2 * self.total_bound * self.prob
+                   / ((1 - self.prob) * np.sqrt(2 * np.pi * s ** 2)))
+
+            def obj(alpha):
+                r = (K @ alpha - yv) ** 2 / (2 * s ** 2)
+                return torch.sum(_softplus(r + np.log(con))) + lam * (
+                    alpha @ alpha)
+
+            return obj
+        raise AssertionError("Loss function not implemented.")
+
+    def _robust_alpha(self):
+        """The MAP alpha of the robust loss: L-BFGS (zoom line search) from
+        zero, at most 500 iterations; its iterations and `converged` are
+        kept in `robust_status`."""
+        K = self.kernel_object.gram(self.x)
+        obj = self._loss_objective(K, self.y)
+        res = minimize_lbfgs(obj, torch.zeros(self.n, dtype=K.dtype,
+                                              device=K.device), max_iter=500)
+        self.robust_status = {"iterations": res.iterations,
+                              "converged": res.converged,
+                              "value": float(res.value)}
+        return res.x[:, None]
 
     # -- prediction ------------------------------------------------------------
     def _variance_std(self, kss, V):
@@ -333,6 +427,21 @@ class GaussianProcess(Estimator):
 
     def mean(self, xtest):
         return self.mean_std(xtest)[0]
+
+    def execute(self, xtest):
+        xtest = self._tensor(xtest)
+        K_star = (self.kernel_object.cross(self.x, xtest).T if self.fitted
+                  else None)
+        return K_star, self.kernel_object.gram(xtest)
+
+    def residuals(self, x, y):
+        return self.mean(x) - self._tensor(y).reshape(-1, 1)
+
+    def norm(self):
+        if not self.fitted:
+            return None
+        K = self.kernel_object.gram(self.x)
+        return torch.sqrt(self.A.T @ K @ self.A)[0, 0]
 
     def beta(self, delta=1e-3, norm=1):
         """Concentration parameter (parity: gauss_procc.py:186-193, via the
@@ -430,6 +539,98 @@ class GaussianProcess(Estimator):
                      - 0.5 * logdet_from_chol(L)
                      - 0.5 * n * math.log(2 * math.pi))
 
+    def sample_and_max(self, xtest, size=1, generator=None):
+        """`size` posterior paths at `xtest` (`sample`) and, per path, its
+        argmax point and maximum."""
+        xtest = self._tensor(xtest)
+        f = self.sample(xtest, size=size, generator=generator)
+        return xtest[torch.argmax(f, dim=0), :], torch.max(f, dim=0).values
+
+    def sample_iteratively_max(self, xtest, multistart=20,
+                               minimizer="coordinate-wise", grid=100,
+                               generator=None):
+        """Thompson-style maximum of a posterior path (gauss_procc.py:
+        985-1085). On a grid (`xtest` given): one joint path and its argmax
+        (`sample_and_max`). Without one: from `multistart` uniform starts in
+        the bounds (self.bounds, else ±diameter), a coordinate sweep that
+        draws the path on a `grid`-point line through the current point
+        along each axis, conditions the GP on that fantasised line and
+        moves to its argmax; the best start's point and value are returned
+        and the data restored. Draws come from `generator` (torch's default
+        generator where None): a start's uniforms, then each line's path."""
+        if xtest is not None:
+            return self.sample_and_max(xtest, size=1, generator=generator)
+        if self.bounds is not None:
+            bounds = self._tensor(self.bounds).reshape(self.d, 2)
+        else:
+            bounds = self._tensor([[-self.diameter, self.diameter]] * self.d)
+        where = self.device if generator is None else generator.device
+        xold, yold = self.x, self.y
+        results = []
+        try:
+            for _ in range(multistart):
+                u = torch.rand((self.d,), generator=generator,
+                               dtype=self.dtype, device=where).to(self.device)
+                solution = bounds[:, 0] + u * (bounds[:, 1] - bounds[:, 0])
+                last_val = None
+                for i in range(self.d):
+                    line = solution[None, :].repeat(grid, 1)
+                    line[:, i] = torch.linspace(float(bounds[i, 0]),
+                                                float(bounds[i, 1]), grid,
+                                                dtype=self.dtype,
+                                                device=self.device)
+                    fsample = self.sample(line, size=1, generator=generator)
+                    # condition on the fantasised line (gauss_procc.py:
+                    # 1050-1056)
+                    self.fit_gp(torch.cat([self.x, line]),
+                                torch.cat([self.y, fsample]))
+                    idx = int(torch.argmax(fsample[:, 0]))
+                    solution = solution.clone()
+                    solution[i] = line[idx, i]
+                    last_val = fsample[idx, 0]
+                results.append((solution, last_val))
+                self.fit_gp(xold, yold)
+        finally:
+            self.fit_gp(xold, yold)
+        best = int(np.argmax([float(v) for _, v in results]))
+        sol, val = results[best]
+        return sol[None, :], val
+
+    # -- evidence ---------------------------------------------------------------
+    def log_marginal(self, kernel, X, weight=1.0):
+        """The negative log evidence: Gaussian for the squared loss
+        (`log_marginal_params`), the MAP/Laplace evidence for a robust one
+        (`_log_marginal_map`)."""
+        if self.loss == "squared":
+            return self.log_marginal_params(kernel, X, self.s, weight)
+        return self._log_marginal_map(kernel, X, weight)
+
+    def _log_marginal_map(self, kernel, X, weight):
+        """MAP/Laplace evidence of a robust loss by Danskin's theorem
+        (gauss_procc.py:579-627): ½·obj(α̂) + ½·weight·log det H, with α̂ the
+        inner argmin (L-BFGS, zoom, 300 iterations) held fixed and H the
+        Hessian of the objective in alpha at α̂ (+1e-8 I), so the gradient
+        flows through K(X) into the Gram Functions' backward only. H is
+        formed by `torch.autograd.functional.hessian` in alpha with K a
+        fixed tensor of the graph, so the Gram Function is not re-entered
+        inside it. As `log_marginal_params`, it runs in float64 on the
+        model's Gram (K + 1e-4 I)."""
+        f64 = torch.float64
+        n = self.x.shape[0]
+        K = kernel.eval_params(X, self.x, self.x).to(f64)
+        K = 0.5 * (K + K.T) + 1e-4 * torch.eye(n, dtype=f64, device=K.device)
+        y = self.y.to(f64)
+        inner = self._loss_objective(K.detach(), y)
+        alpha = minimize_lbfgs(inner, torch.zeros(n, dtype=f64,
+                                                  device=K.device),
+                               max_iter=300).x.detach()
+        obj = self._loss_objective(K, y)
+        H = torch.autograd.functional.hessian(obj, alpha, create_graph=True,
+                                              vectorize=True)
+        H = H + 1e-8 * torch.eye(n, dtype=f64, device=K.device)
+        logdet = -0.5 * torch.linalg.slogdet(H)[1] * weight
+        return -(-0.5 * obj(alpha) + logdet)
+
     # -- hyperparameter presets (parity: gauss_procc.py:640-697) -----------------
     def optimize_params(
         self, type="bandwidth", restarts=10, regularizer=None, maxiter=200,
@@ -484,6 +685,186 @@ class GaussianProcess(Estimator):
             generator=generator, **hyperopt_kwargs,
         )
 
-    # -- not ported yet ----------------------------------------------------------
-    def ucb_optimize(self, *args, **kwargs):
-        raise NotImplementedError("ucb_optimize is ROADMAP Queue 1 item 6")
+    # -- BO acquisition (gauss_procc.py:918-1085) ------------------------------
+    def _acquisition(self, pts, beta, sign):
+        """sign·μ + β·σ of the posterior at each row of `pts` (m, d), on the
+        stored factor and alpha: the cross Gram by the Gram kernel, through
+        `_Gram` where `pts` needs a gradient."""
+        ko, pd = self.kernel_object, self.kernel_object.params_dict
+        K_star = ko.eval_params(pd, pts, self.x)                  # (m, n)
+        mu = (K_star @ self.A)[:, 0]
+        V = tri_solve(self.L, K_star.T)
+        var = torch.clamp(ko.diag(pts, pd) - torch.sum(V * V, dim=0),
+                          min=1e-30)
+        return sign * mu + beta * torch.sqrt(var)
+
+    def ucb_optimize(self, beta=2.0, multistart=25, lcb=False, generator=None,
+                     steps=200, lr=0.05):
+        """Maximise μ ± β·σ over self.bounds by projected gradient ascent
+        (step `lr`, `steps` steps) from `multistart` uniform starts drawn
+        from `generator` (default: a fresh one seeded 7, the JAX package's
+        PRNGKey(7)). The starts ascend together as one (multistart, d)
+        tensor: a start's acquisition depends on its own row only, so one
+        backward of their sum gives every row its gradient. Returns the best
+        point (d,) and its value μ ± β·σ."""
+        assert self.bounds is not None, "ucb_optimize needs box bounds"
+        bounds = self._tensor(self.bounds).reshape(self.d, 2)
+        lo, hi = bounds[:, 0], bounds[:, 1]
+        sign = -1.0 if lcb else 1.0
+        if generator is None:
+            generator = torch.Generator(device=self.device).manual_seed(7)
+        u = torch.rand((multistart, self.d), generator=generator,
+                       dtype=self.dtype,
+                       device=generator.device).to(self.device)
+        pts = lo + u * (hi - lo)
+        for _ in range(steps):
+            with torch.enable_grad():
+                p = pts.detach().requires_grad_()
+                (g,) = torch.autograd.grad(
+                    self._acquisition(p, beta, sign).sum(), p)
+            pts = torch.clamp(pts + lr * g, lo, hi)
+        with torch.no_grad():
+            vals = self._acquisition(pts, beta, sign)
+        best = int(torch.argmax(vals))
+        return pts[best], sign * vals[best]
+
+    # -- the adversarially robust "volume" mean (gauss_procc.py:710-896) --------
+    def volume_mean(self, xtest, weights=None, eps=1e-1, tol=1e-6,
+                    max_iter=1000, verbose=False, scale=None, slope=1.0,
+                    relax="relu", B="auto", bisections=10,
+                    optimize_scale=False):
+        """Adversarially robust mean: the least-RKHS-norm function β that
+        stays within an ε-band of as much (weighted) data as it can,
+
+            min_β Σ_i w_i ρ(slope·(|β_i − y_i| − ε)) + (scale/2)·βᵀK⁻¹β,
+
+        with ρ = relu (its exact elementwise prox, FISTA with backtracking)
+        or the logistic (smooth; L-BFGS with the zoom line search), and
+        `scale` set by bisection so that βᵀK⁻¹β meets the budget B (by
+        default the squared-loss fit's).
+
+        It runs in float64 whatever the model's dtype, on `_gram64`'s Gram
+        (the double-float Gram on a narrower model): βᵀ(K + 1e-6 I)⁻¹β has
+        the condition number of K + 1e-6 I (6e8 on `benchmarks/run_all.py`
+        config 1), so an f32 Gram's rounding (~6e-8 relative) leaves
+        nothing of it, and an f32 run ends elsewhere (its bisection at the
+        top of the bracket on config 1, the CPU's f32). Returns the model's
+        dtype."""
+        f64 = torch.float64
+        xtest = self._tensor(xtest)
+        n = self.n
+        K = self._gram64(self.x, self.x)
+        K = 0.5 * (K + K.T) + 1e-6 * torch.eye(n, dtype=f64,
+                                               device=self.device)
+        L = safe_cholesky(K).L
+        yv = self.y.reshape(-1).to(f64)
+        w = (torch.ones(n, dtype=f64, device=self.device) / n
+             if weights is None else self._tensor(weights).reshape(-1).to(f64))
+
+        def quad(beta):
+            return beta @ cho_solve(L, beta.reshape(-1, 1)).reshape(-1)
+
+        if B == "auto":
+            B = float(quad((K @ cho_solve(L, self.y.to(f64))).reshape(-1)))
+
+        def fit_beta(scale_arg):
+            if relax == "relu":
+                def smooth(beta):
+                    return 0.5 * scale_arg * quad(beta)
+
+                def prox(beta, step):
+                    # the prox of step·w·slope·relu(|t − y| − ε): a shrink
+                    # toward the ε-band, exact and elementwise
+                    r = beta - yv
+                    excess = torch.clamp(torch.abs(r) - eps, min=0.0)
+                    shrink = torch.minimum(step * w * slope, excess)
+                    return beta - torch.sign(r) * shrink
+
+                return fista_prox_backtracking(smooth, yv, prox,
+                                               max_iter=max_iter, tol=tol).x
+
+            def obj(beta):
+                t = slope * (torch.abs(beta - yv) - eps)
+                return torch.sum(w * _softplus(t)) + 0.5 * scale_arg * quad(
+                    beta)
+
+            return minimize_lbfgs(obj, yv, max_iter=max_iter).x
+
+        if scale is None or optimize_scale:
+            def gap(s_arg):
+                return quad(fit_beta(torch.clamp(s_arg, min=1e-8))) - B
+
+            one = torch.ones((), dtype=f64, device=self.device)
+            scale = float(bisection(gap, 1e-6 * one, one, iters=bisections))
+            if optimize_scale:
+                return scale
+        alpha = cho_solve(L, fit_beta(scale).reshape(-1, 1))
+        return (self._gram64(xtest, self.x) @ alpha).to(self.dtype)
+
+    volume_mean_cvxpy = volume_mean   # the reference's name (its cvxpy path)
+
+    def volume_mean_norm(self, xtest, **kwargs):
+        """`volume_mean` with the weights normalised to sum 1."""
+        w = kwargs.pop("weights", None)
+        if w is not None:
+            w = self._tensor(w).reshape(-1)
+            w = w / torch.clamp(torch.sum(w), min=1e-12)
+        return self.volume_mean(xtest, weights=w, **kwargs)
+
+    def isin(self, xnext, epsilon=1e-3):
+        """Whether `xnext` lies within `epsilon` (L2) of a training point."""
+        if self.x is None:
+            return False
+        xnext = self._tensor(xnext).reshape(1, -1)
+        return bool(torch.any(
+            torch.linalg.vector_norm(self.x - xnext, dim=1) < epsilon))
+
+    # -- posterior derivatives in the point (gauss_procc.py:416-459) ------------
+    def _pointwise_posterior_fns(self):
+        """The posterior mean and variance at one point (d,), differentiable
+        in it: on the stored f32 factor and alpha (hi column), the cross
+        Gram through `_Gram`, whose backward is itself differentiable, so
+        second derivatives are reverse over reverse, as in the JAX
+        package (the df Gram has no derivative there either)."""
+        ko, pd, A = self.kernel_object, self.kernel_object.params_dict, self.A
+
+        def mu_fn(pt):
+            return (ko.eval_params(pd, pt[None, :], self.x) @ A)[0, 0]
+
+        def var_fn(pt):
+            K_star = ko.eval_params(pd, pt[None, :], self.x)
+            v = tri_solve(self.L, K_star.T)
+            return ko.diag(pt[None, :], pd)[0] - torch.sum(v * v)
+
+        return mu_fn, var_fn
+
+    @staticmethod
+    def _grad_and_hessian(fn, point, hessian):
+        """∇fn at `point` and, with `hessian`, its Hessian (reverse over
+        reverse, one row per coordinate)."""
+        with torch.enable_grad():
+            p = point.detach().requires_grad_()
+            (g,) = torch.autograd.grad(fn(p), p, create_graph=hessian)
+            if not hessian:
+                return g
+            H = torch.stack([torch.autograd.grad(g[i], p, retain_graph=True)[0]
+                             for i in range(p.shape[0])])
+        return g.detach(), H
+
+    def gradient_mean_var(self, point, hessian=True):
+        """∇μ at one point and, with `hessian`, the Hessian of the posterior
+        variance there: [∇μ, ∇²σ²]."""
+        point = self._tensor(point).reshape(-1)
+        mu_fn, var_fn = self._pointwise_posterior_fns()
+        nabla_mu = self._grad_and_hessian(mu_fn, point, False)
+        if not hessian:
+            return nabla_mu
+        return [nabla_mu, self._grad_and_hessian(var_fn, point, True)[1]]
+
+    def mean_gradient_hessian(self, xtest, hessian=False):
+        """∇μ at one point and, with `hessian`, [∇μ, ∇²μ]."""
+        xtest = self._tensor(xtest).reshape(-1)
+        mu_fn, _ = self._pointwise_posterior_fns()
+        if not hessian:
+            return self._grad_and_hessian(mu_fn, xtest, False)
+        return list(self._grad_and_hessian(mu_fn, xtest, True))

@@ -5,4 +5,16 @@ from stpy_tpu_torch.opt.lbfgs import (
     minimize_lbfgs,
     minimize_newton_small,
 )
-from stpy_tpu_torch.opt.scalar import golden_section
+from stpy_tpu_torch.opt.prox import (
+    SolveResult,
+    fista_backtracking,
+    fista_prox_backtracking,
+    project_l2_ball,
+    project_simplex,
+    projected_fista,
+    projected_gradient,
+    prox_box,
+    prox_group_l2,
+    prox_l1,
+)
+from stpy_tpu_torch.opt.scalar import bisection, golden_section, newton_1d

@@ -1,11 +1,12 @@
 """Quasi-Newton and damped-Newton minimisers for small parameter vectors.
 
-Port of stpy_tpu/opt/lbfgs.py for the evidence hyperfit: `LBFGSResult`,
-`minimize_lbfgs` with the `"backtracking"` and `"batched"` line searches,
-`minimize_newton_small` and the two bijectors. The JAX package builds its
-L-BFGS on optax (`scale_by_lbfgs`, `scale_by_backtracking_linesearch`); the
-card has no optax, so `_LBFGSMemory` and `_Backtracking` compute what
-those transforms compute (optax 0.2.6), in plain torch.
+Port of stpy_tpu/opt/lbfgs.py: `LBFGSResult`, `minimize_lbfgs` with the
+`"zoom"` (strong Wolfe, the default), `"backtracking"` and `"batched"` line
+searches, `minimize_newton_small` and the two bijectors. The JAX package
+builds its L-BFGS on optax (`scale_by_lbfgs`, `scale_by_zoom_linesearch`,
+`scale_by_backtracking_linesearch`); the card has no optax, so
+`_LBFGSMemory`, `_Zoom` and `_Backtracking` compute what those transforms
+compute (optax 0.2.6), in plain torch.
 
 PyTorch runs eagerly, so each `lax.while_loop` is a Python loop that reads
 its stop test on the host, and the JAX package's `vmap` over candidate
@@ -21,6 +22,7 @@ from __future__ import annotations
 import math
 from typing import Callable, NamedTuple
 
+import numpy as np
 import torch
 
 _C1 = 1e-4   # Armijo constant of the batched search and of Newton's guard
@@ -146,6 +148,155 @@ class _Backtracking:
         return self.lr * u
 
 
+def _cubicmin(a, fa, fpa, b, fb, c, fc):
+    """The critical point of the cubic through (a, fa) with slope fpa at a,
+    (b, fb) and (c, fc); NaN where it has none (optax's `_cubicmin`)."""
+    C = fpa
+    db, dc = b - a, c - a
+    denom = (db * dc) ** 2 * (db - dc)
+    u, v = fb - fa - C * db, fc - fa - C * dc
+    A = (dc ** 2 * u - db ** 2 * v) / denom
+    B = (-(dc ** 3) * u + db ** 3 * v) / denom
+    return a + (-B + np.sqrt(B * B - 3.0 * A * C)) / (3.0 * A)
+
+
+def _quadmin(a, fa, fpa, b, fb):
+    """The critical point of the quadratic through (a, fa) with slope fpa
+    at a and (b, fb) (optax's `_quadmin`)."""
+    db = b - a
+    B = (fb - fa - fpa * db) / (db ** 2)
+    return a - fpa / (2.0 * B)
+
+
+class _Zoom:
+    """optax.scale_by_zoom_linesearch(max_linesearch_steps,
+    initial_guess_strategy="one") with its defaults (slope_rtol 1e-4,
+    curv_rtol 0.9, approx_dec_rtol 1e-6, increase factor 2, stepsize
+    precision 1e-5, tol 0, no maximal step): Nocedal & Wright's Algorithms
+    3.5 (bracketing) and 3.6 (zoom by cubic, else quadratic, else bisection
+    interpolation) with Hager & Zhang's approximate-Wolfe decrease test.
+    Where it fails (out of steps, or an interval under the precision with
+    a sufficient decrease seen), it takes the best step of sufficient
+    decrease, else the last step tried (none where every step left the
+    domain). The scalars of the search are float64 numpy scalars read on
+    the host (NaN propagates as in jnp); the points keep x's dtype. Holds
+    the accepted point's value and gradient for the next iteration."""
+
+    SLOPE_RTOL, CURV_RTOL, APPROX_DEC_RTOL = 1e-4, 0.9, 1e-6
+    INCREASE, INTERVAL_THRESHOLD = 2.0, 1e-5
+
+    def __init__(self, x: torch.Tensor, max_steps: int):
+        self.max_steps = max_steps
+        self.value = x.new_tensor(math.inf)
+        self.grad = torch.zeros_like(x)
+
+    value_and_grad = _Backtracking.value_and_grad
+
+    def _decrease_error(self, step, value, slope, value0, slope0):
+        err = value - value0 - self.SLOPE_RTOL * step * slope0
+        approx = np.maximum(
+            slope - (2 * self.SLOPE_RTOL - 1.0) * slope0,
+            value - value0 - self.APPROX_DEC_RTOL * np.abs(value0))
+        err = np.maximum(np.minimum(approx, err), 0.0)
+        return np.float64(np.inf) if np.isnan(err) else err
+
+    def _curvature_error(self, slope, slope0):
+        err = np.maximum(np.abs(slope) - self.CURV_RTOL * np.abs(slope0), 0.0)
+        return np.float64(np.inf) if np.isnan(err) else err
+
+    def step(self, fun, x, u, value, grad) -> torch.Tensor:
+        """The scaled update η·u."""
+        f64 = np.float64
+
+        def on_line(eta):
+            v, g = _value_and_grad(fun, x + eta * u)
+            return f64(v), g, f64(torch.dot(g, u))
+
+        value0 = f64(value)
+        slope0 = f64(torch.dot(u, grad))
+        # the state of the search: the last step tried, the bracket
+        # [low, high] and the cubic's third point, the best safe step
+        eta, val, slope, g_eta = f64(0.0), value0, slope0, grad
+        low, v_low, s_low = f64(0.0), value0, slope0
+        high, v_high, s_high = f64(0.0), value0, slope0
+        cref, v_cref = f64(0.0), value0
+        safe, v_safe, g_safe = f64(0.0), value0, grad
+        dec = f64(np.inf)
+        found = done = failed = False
+        count = 0
+        with np.errstate(all="ignore"):
+            while not (done or failed):
+                if not found:
+                    # Algorithm 3.5: grow the step until it brackets one
+                    new = f64(1.0) if count == 0 else self.INCREASE * eta
+                    v_new, g_new, s_new = on_line(new)
+                    dec = self._decrease_error(new, v_new, s_new, value0,
+                                               slope0)
+                    err = np.maximum(dec, self._curvature_error(s_new, slope0))
+                    if dec <= 0.0:
+                        safe, v_safe, g_safe = new, v_new, g_new
+                    to_high = bool(dec > 0.0) or (
+                        bool(v_new >= val) and count > 0)
+                    to_low = bool(s_new >= 0.0) and not to_high
+                    if to_low:
+                        low, v_low, s_low = new, v_new, s_new
+                        high, v_high, s_high = eta, val, slope
+                    else:
+                        low, v_low, s_low = eta, val, slope
+                        high, v_high, s_high = new, v_new, s_new
+                    found = to_high or to_low or bool(err <= 0.0)
+                    done = bool(err <= 0.0)
+                    failed = count + 1 >= self.max_steps and not done
+                    cref, v_cref = low, v_low
+                else:
+                    # Algorithm 3.6: interpolate inside the bracket
+                    delta = np.abs(high - low)
+                    left, right = np.minimum(high, low), np.maximum(high, low)
+                    too_small = bool(delta <= self.INTERVAL_THRESHOLD)
+                    mid_c = _cubicmin(low, v_low, s_low, high, v_high, cref,
+                                      v_cref)
+                    mid_q = _quadmin(low, v_low, s_low, high, v_high)
+                    if (mid_c > left + 0.2 * delta) and (
+                            mid_c < right - 0.2 * delta):
+                        new = mid_c
+                    elif (mid_q > left + 0.1 * delta) and (
+                            mid_q < right - 0.1 * delta):
+                        new = mid_q
+                    else:
+                        new = (low + high) / 2.0
+                    v_new, g_new, s_new = on_line(new)
+                    dec = self._decrease_error(new, v_new, s_new, value0,
+                                               slope0)
+                    err = np.maximum(dec, self._curvature_error(s_new, slope0))
+                    if dec <= 0.0 and v_new < v_safe:
+                        safe, v_safe, g_safe = new, v_new, g_new
+                    done = bool(err <= 0.0)
+                    to_high = bool(dec > 0.0) or bool(v_new >= v_low)
+                    high_to_low = bool(s_new * (high - low) >= 0.0) \
+                        and not to_high
+                    old_low, old_vlow, old_slow = low, v_low, s_low
+                    if to_high or high_to_low:
+                        cref, v_cref = high, v_high
+                    else:
+                        cref, v_cref = low, v_low
+                    if to_high:
+                        high, v_high, s_high = new, v_new, s_new
+                    if high_to_low:
+                        high, v_high, s_high = old_low, old_vlow, old_slow
+                    if not to_high:
+                        low, v_low, s_low = new, v_new, s_new
+                    failed = (count + 1 >= self.max_steps
+                              or (too_small and safe > 0.0)) and not done
+                eta, val, slope, g_eta = new, v_new, s_new, g_new
+                count += 1
+                if failed and (safe > 0.0 or np.isinf(dec)):
+                    # the best step of sufficient decrease, if any
+                    eta, val, g_eta = safe, v_safe, g_safe
+        self.value = x.new_tensor(float(val))
+        self.grad = g_eta
+        return x.new_tensor(float(eta)) * u
+
+
 def minimize_lbfgs(
     fun: Callable[[torch.Tensor], torch.Tensor],
     x0: torch.Tensor,
@@ -160,9 +311,11 @@ def minimize_lbfgs(
 ) -> LBFGSResult:
     """Minimise `fun` from x0 (stpy_tpu/opt/lbfgs.py:minimize_lbfgs).
 
-    linesearch="backtracking": optax's L-BFGS with its sufficient-decrease
-    backtracking; "batched": `_minimize_lbfgs_batched_ls`. The JAX
-    default, "zoom" (strong Wolfe), raises NotImplementedError.
+    linesearch="zoom" (the default): optax's L-BFGS with its strong-Wolfe
+    zoom line search, which keeps optax's 20 steps whatever
+    `max_linesearch_steps` says, as in the JAX package; "backtracking":
+    with optax's sufficient-decrease backtracking (max_linesearch_steps);
+    "batched": `_minimize_lbfgs_batched_ls`.
 
     step_clip: iterates are clipped to [−step_clip, step_clip] after every
     step (the saturation guard of the sigmoid box reparameterisation).
@@ -174,14 +327,14 @@ def minimize_lbfgs(
             fun, x0, max_iter=max_iter, tol=tol, memory_size=memory_size,
             rtol=rtol, xtol=xtol, max_linesearch_steps=max_linesearch_steps,
             step_clip=step_clip)
-    if linesearch != "backtracking":
-        raise NotImplementedError(
-            f"linesearch={linesearch!r}: the zoom (strong-Wolfe) line search "
-            "comes with its first caller, the robust losses (ROADMAP Queue 1 "
-            "item 6); the evidence hyperfit takes 'backtracking' or 'batched'")
     done = _stop_test(tol, rtol, xtol)
     memory = _LBFGSMemory(x0, memory_size)
-    search = _Backtracking(x0, max_linesearch_steps)
+    if linesearch == "backtracking":
+        search = _Backtracking(x0, max_linesearch_steps)
+    else:
+        # optax.lbfgs's own line search: the caller's step count does not
+        # reach it (stpy_tpu/opt/lbfgs.py:81)
+        search = _Zoom(x0, 20)
     x, it = x0.detach(), 0
     gnorm, val, dx = math.inf, float(_value(fun, x0)), math.inf
     while it < max_iter and not done(x, gnorm, val, dx):

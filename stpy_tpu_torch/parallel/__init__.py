@@ -1,8 +1,8 @@
 """Large-n inference on one device: the matrix-free Gram products, CG
 solvers, low-rank preconditioners, `IterativeGP`, stochastic Lanczos
-quadrature and the matrix-free evidence fit (port of the single-device part
-of stpy_tpu/parallel; the mesh tiers and `data` wait for their own slice,
-ROADMAP Queue 1 item 11, and bbmm's general tier for Queue 1 item 5)."""
+quadrature and the matrix-free evidence fit, fused and general tiers (port
+of the single-device part of stpy_tpu/parallel; the mesh tiers and `data`
+wait for their own slice, ROADMAP Queue 1 item 11)."""
 
 from stpy_tpu_torch.ops.gram_matvec import (
     gram_matmat,

@@ -1,7 +1,7 @@
 """Matrix-free evidence (log-marginal) value and gradients, BBMM style, and
 the hyperparameter fits built on them.
 
-Port of the fused tier of stpy_tpu/parallel/bbmm.py. For
+Port of stpy_tpu/parallel/bbmm.py. The fused tier: for
 A(θ) = Σ_a κ_a·K̃_a(γ_a) + σ²I, a sum of fused atoms (SE / ARD / Matérn
 ν ∈ {½, 3/2, 5/2}, each optionally on a coordinate group):
 
@@ -22,9 +22,14 @@ none. Its `jax.random` keys become one `torch.Generator` per evidence call
 (default: a fresh one on x's device, seeded with 0), drawn on its own
 device in a fixed order: the preconditioner's landmarks, the probe block Z,
 then SLQ's probes; a fit seeds each step's generator, on x's device, from
-its `seed` and the step, as `fold_in(key, step)` does. The general tier for any kernel
-(`evidence_value_and_grad_general`, `fit_evidence_general`) autodiffs
-through the row-chunked Gram and is ROADMAP Queue 1 item 5.
+its `seed` and the step, as `fold_in(key, step)` does.
+
+The general tier (`evidence_value_and_grad_general`, `fit_evidence_general`)
+serves any kernel the port builds (products, Laplace, algebra): the same
+identities, with the ∂A terms from autograd through a surrogate over the
+row-chunked Gram (parallel/lazy_kernel.make_chunked_matmat, checkpointed
+per chunk: O(n·chunk) memory), i.e. through the hand Grams' autograd
+Functions.
 """
 
 from __future__ import annotations
@@ -42,11 +47,6 @@ from stpy_tpu_torch.parallel.iterative import (
     cg_solve, cg_solve_block, rayleigh_nystrom_precond,
 )
 from stpy_tpu_torch.parallel.slq import rademacher, slq_logdet
-
-_GENERAL = ("the matrix-free evidence for any kernel (bbmm's general tier, "
-            "which autodiffs through the row-chunked Gram) is ROADMAP "
-            "Queue 1 item 5")
-
 
 def step_generator(seed: int, step: int, device="cpu") -> torch.Generator:
     """The generator of one step of a fit, on `device`: seeded from
@@ -262,8 +262,93 @@ def evidence_value_and_grad_lazy(
                  "noise": g["noise"]}
 
 
-def evidence_value_and_grad_general(*args, **kwargs):
-    raise NotImplementedError(f"evidence_value_and_grad_general: {_GENERAL}")
+# ---------------------------------------------------------------------------
+# general-kernel evidence (chunked autograd surrogate)
+# ---------------------------------------------------------------------------
+
+def evidence_value_and_grad_general(
+    kernel_object, x, y, params_dict=None, noise=0.1, *,
+    chunk=2048, probes=16, lanczos_iters=30, cg_tol=1e-6, cg_maxiter=500,
+    probe_tol=None, probe_maxiter=100, generator=None, compute_value=True,
+    precond_rank=0,
+):
+    """Matrix-free evidence gradient for ANY KernelFunction (products,
+    Laplace, algebra) in the whole params dict and the noise. α by PCG
+    (the landmark `rayleigh_nystrom_precond` where precond_rank > 0), W by
+    a block solve on Rademacher probes Z, then the surrogate
+
+        −½ αᵀ(∂A)α + ½ mean_p w_pᵀ(∂A)z_p,   α, W, Z held fixed,
+
+    whose autograd gradient in (params, σ) is the NLL's: one chunked
+    product K(θ)·[α, Z] (`make_chunked_matmat`, checkpointed per chunk),
+    its backward through the hand Grams' Functions. The value, where asked
+    for, is ½yᵀα + ½ SLQ log det + (n/2) log 2π.
+
+    `params_dict` (default: the kernel's) gives the point; its leaves are
+    taken in x's dtype, as the JAX package casts them. Draws come from
+    `generator` (default: a fresh one on x's device seeded with 0): the
+    landmarks, then Z, then SLQ's probes. Returns
+    (nll, {"params": {atom: {name: grad}}, "noise": g}), nll NaN with
+    compute_value=False."""
+    from stpy_tpu_torch.parallel.lazy_kernel import make_chunked_matmat
+
+    x, yv = _data(x, y)
+    n = yv.shape[0]
+    gen = (generator if generator is not None
+           else torch.Generator(device=x.device).manual_seed(0))
+    probe_tol = cg_tol if probe_tol is None else probe_tol
+    pd = params_dict if params_dict is not None else kernel_object.params_dict
+    pd0 = {ak: {pk: as_tensor(v, device=x.device, dtype=x.dtype)
+                for pk, v in sub.items()} for ak, sub in pd.items()}
+    s0 = float(noise)
+    mm = make_chunked_matmat(kernel_object, x, chunk=int(min(chunk, n)))
+
+    def Amm(V):
+        return mm(V, pd0) + (s0 * s0) * V
+
+    def Av(v):
+        return Amm(v.reshape(-1, 1))[:, 0]
+
+    M_inv = None
+    if precond_rank > 0:
+        r = int(min(precond_rank, n))
+        idx = torch.randperm(n, generator=gen, device=gen.device)[:r].to(
+            x.device)
+        C = kernel_object.eval_params(pd0, x, x[idx])            # (n, r)
+        M_inv = rayleigh_nystrom_precond(C, Amm, s0)
+    Z = rademacher(n, probes, gen, yv.dtype, yv.device)
+    alpha, _, _ = cg_solve(Av, yv, M_inv=M_inv, tol=cg_tol,
+                           maxiter=cg_maxiter)
+    W, _ = cg_solve_block(Amm, Z, M_inv=M_inv, tol=probe_tol,
+                          maxiter=probe_maxiter)
+
+    # ∇surrogate = −½αᵀ(∂A)α + ½·mean_p w_pᵀ(∂A)z_p  (α, W, Z fixed)
+    leaves = {ak: {pk: v.detach().clone().requires_grad_()
+                   for pk, v in sub.items()} for ak, sub in pd0.items()}
+    s_leaf = torch.tensor(s0, dtype=x.dtype, device=x.device,
+                          requires_grad=True)
+    flat = [v for sub in leaves.values() for v in sub.values()]
+    with torch.enable_grad():
+        KV = mm(torch.cat([alpha[:, None], Z], dim=1), leaves)
+        s2 = s_leaf * s_leaf
+        quad = -0.5 * (alpha @ KV[:, 0] + s2 * (alpha @ alpha))
+        tr = 0.5 * (torch.mean(torch.sum(W * KV[:, 1:], dim=0))
+                    + s2 * torch.mean(torch.sum(W * Z, dim=0)))
+        grads = torch.autograd.grad(quad + tr, flat + [s_leaf],
+                                    allow_unused=True)
+    grads = [torch.zeros_like(v) if g is None else g
+             for v, g in zip(flat + [s_leaf], grads)]
+    it = iter(grads)
+    g_params = {ak: {pk: next(it) for pk in sub} for ak, sub in leaves.items()}
+    g_noise = next(it)
+    if compute_value:
+        ld, _ = slq_logdet(Av, n, probes=probes, lanczos_iters=lanczos_iters,
+                           generator=gen, dtype=yv.dtype, device=yv.device,
+                           matmat=Amm)
+        nll = 0.5 * yv @ alpha + 0.5 * ld + 0.5 * n * math.log(2.0 * math.pi)
+    else:
+        nll = torch.tensor(float("nan"), dtype=yv.dtype, device=yv.device)
+    return nll, {"params": g_params, "noise": g_noise}
 
 
 # ---------------------------------------------------------------------------
@@ -431,5 +516,77 @@ def fit_evidence_sum(
             "steps_run": steps_run, "history": history}
 
 
-def fit_evidence_general(*args, **kwargs):
-    raise NotImplementedError(f"fit_evidence_general: {_GENERAL}")
+_GAMMA_KEYS = {"gamma", "ard_gamma", "gamma_per_group", "ard_per_group"}
+
+
+def fit_evidence_general(
+    kernel_object, x, y, noise0=0.1, *,
+    optimize=("gamma", "noise"), steps=30, lr=0.1, probes=32,
+    chunk=2048, cg_tol=1e-5, cg_maxiter=300, probe_tol=1e-2,
+    probe_maxiter=60, tol=1e-2, seed=0, verbose=False, precond_rank=0,
+):
+    """Matrix-free hyperfit for ANY KernelFunction: log-space Adam on
+    `evidence_value_and_grad_general` (compute_value=False, generator
+    `step_generator(seed, step, x.device)`) over every lengthscale leaf
+    (gamma / ard_gamma / gamma_per_group / ard_per_group) when "gamma" ∈
+    optimize, every kappa when "kappa" ∈ optimize, and the noise when
+    "noise" ∈ optimize; other leaves stay fixed. Writes nothing back:
+    returns {"params": fitted leaves as float64 tensors shaped like the
+    kernel's, "noise": float, "steps_run", "history"}."""
+    pd0 = kernel_object.params_dict
+    flat, theta0 = {}, {}
+    for ak, sub in pd0.items():
+        for pk, val in sub.items():
+            if not ((pk in _GAMMA_KEYS and "gamma" in optimize)
+                    or (pk == "kappa" and "kappa" in optimize)):
+                continue
+            name = f"{ak}.{pk}"
+            flat[name] = (ak, pk)
+            v = np.asarray(_numpy(val), np.float64)
+            theta0[name] = v if (v.ndim > 0 and v.size > 1) else float(v)
+    if "noise" in optimize:
+        theta0["noise"] = float(noise0)
+    if not theta0:
+        raise ValueError("nothing to optimize for this kernel/optimize set")
+    x, yv = _data(x, y)
+
+    def leaf(name, value):
+        ak, pk = flat[name]
+        ref = pd0[ak][pk]
+        return torch.as_tensor(np.broadcast_to(np.asarray(value),
+                                               tuple(ref.shape)).copy(),
+                               dtype=torch.float64, device=ref.device)
+
+    def theta_to_pd(theta):
+        pd = {ak: dict(sub) for ak, sub in pd0.items()}
+        for name, (ak, pk) in flat.items():
+            pd[ak][pk] = leaf(name, theta[name])
+        return pd
+
+    step_counter = [0]
+
+    def vg(theta):
+        step_counter[0] += 1
+        _, grads = evidence_value_and_grad_general(
+            kernel_object, x, yv, theta_to_pd(theta),
+            float(theta.get("noise", noise0)), chunk=chunk, probes=probes,
+            cg_tol=cg_tol, cg_maxiter=cg_maxiter, probe_tol=probe_tol,
+            probe_maxiter=probe_maxiter,
+            generator=step_generator(seed, step_counter[0], x.device),
+            compute_value=False, precond_rank=precond_rank)
+        out = {}
+        for name, (ak, pk) in flat.items():
+            g = np.asarray(_numpy(grads["params"][ak][pk]), np.float64)
+            t = np.asarray(theta[name])
+            out[name] = g if t.shape == g.shape else np.sum(g)
+        if "noise" in theta:
+            out["noise"] = _numpy(grads["noise"])
+        return out
+
+    theta, steps_run, history = _adam_log_space(vg, theta0, steps, lr, tol,
+                                                verbose)
+    fitted = {ak: {} for ak in pd0}
+    for name, (ak, pk) in flat.items():
+        fitted[ak][pk] = leaf(name, theta[name])
+    return {"params": fitted, "noise": float(theta.get("noise", noise0)),
+            "steps_run": steps_run, "history": history}

@@ -12,16 +12,25 @@ PyTorch runs eagerly, so each `jax.lax.while_loop` becomes a Python loop on
 tensors that reads one scalar to the host per iteration (the loop test), and
 `vmap` over Hutchinson probes becomes the probe block written out. The
 iterates are the JAX package's: the same stagnation rule, halving
-checkpoint, frozen columns, segment restarts and best-iterate return.
+checkpoint, frozen columns and best-iterate return.
 
-`optimize_params` fits the hyperparameters of a sum of fused atoms on the
-matrix-free evidence (parallel/bbmm.py). Not ported yet, each raising
-NotImplementedError naming its ROADMAP item: the mesh tiers (``mesh``
-other than None, Queue 1 item 11), `optimize_params` for any other kernel
-(bbmm's general tier, Queue 1 item 5), `sample_pathwise` (feature
-embeddings, Queue 1 item 8) and the double tier's df-refined variance at
-``var_refine >= 1`` (`_std_exact_df`, which needs `compensated.df_gemm`,
-Queue 1 item 4).
+One departure: the fit and the exact variance always run the single-loop
+solvers (`cg_solve`, `cg_solve_block`). The JAX package switches to the
+segmented ones above n = 32768 only because a multi-minute XLA program
+killed the TPU worker (stpy_tpu/parallel/iterative.py:151-168); the
+restarts cost accuracy (at n = 65536 on the defaults the segmented fit
+stops at residual 4.4e-4, the unsegmented one reaches 1.0e-5 in as many
+iterations on an H100), and the port's eager loop has no such limit. So
+above 32768 the port's iterates are not the JAX package's.
+`cg_solve_segmented` and `cg_solve_block_segmented` stay public.
+
+`optimize_params` fits the hyperparameters on the matrix-free evidence
+(parallel/bbmm.py): sums of fused atoms on the fused tier, any other
+kernel on the general tier. ``precision="double"`` with ``var_refine >= 1``
+serves a df-refined exact variance (`_std_exact_df`). Not ported yet, each
+raising NotImplementedError naming its ROADMAP item: the mesh tiers
+(``mesh`` other than None, Queue 1 item 11) and `sample_pathwise` (feature
+embeddings, Queue 1 item 8).
 """
 
 from __future__ import annotations
@@ -31,8 +40,13 @@ import warnings
 import torch
 
 from stpy_tpu_torch.config import as_tensor, resolve_device
-from stpy_tpu_torch.kernels.df_plan import df_atom_desc, df_gram_from_desc
+from stpy_tpu_torch.kernels.df_plan import (
+    df_atom_desc,
+    df_diag_from_desc,
+    df_gram_from_desc,
+)
 from stpy_tpu_torch.ops.gemv_df import gemv_df
+from stpy_tpu_torch.ops.qform_df import qform_refined_strip
 from stpy_tpu_torch.parallel.lazy_kernel import (
     atom_params,
     fast_atoms,
@@ -41,9 +55,6 @@ from stpy_tpu_torch.parallel.lazy_kernel import (
     make_sum_matmat,
     make_sum_matvec,
 )
-
-# solves above this size run as segmented host loops (cg_solve_block_segmented)
-SEGMENT_ABOVE = 32768
 
 
 def _auto_window(stall_window, dtype):
@@ -172,9 +183,8 @@ def cg_solve_block_segmented(matmat, B, M_inv=None, tol=1e-8,
 
     The JAX package bounds its device programs this way because a
     multi-minute `while_loop` killed the TPU worker
-    (stpy_tpu/parallel/iterative.py:151-168). The port keeps it because the
-    restarts change the iterates, and the port is held to the reference's
-    results (ROADMAP Queue 1 item 11 asks whether to drop it)."""
+    (stpy_tpu/parallel/iterative.py:151-168). The port's `IterativeGP` does
+    not use it (see the module docstring); it stays as public surface."""
     bnorm_safe = torch.clamp(torch.linalg.vector_norm(B, dim=0), min=1e-30)
     X = torch.zeros_like(B)
     total = 0
@@ -515,9 +525,8 @@ class IterativeGP:
         self._matvec = matvec
         self._M_inv = M_inv
 
-        solve = cg_solve_segmented if self.n > SEGMENT_ABOVE else cg_solve
-        alpha, it, res = solve(matvec, y.reshape(-1), M_inv=M_inv,
-                               tol=self.tol, maxiter=self.maxiter)
+        alpha, it, res = cg_solve(matvec, y.reshape(-1), M_inv=M_inv,
+                                  tol=self.tol, maxiter=self.maxiter)
         self.A = alpha.reshape(-1, 1)
         self.cg_iterations = int(it)
         self.cg_residual = float(res)
@@ -626,25 +635,21 @@ class IterativeGP:
         xtest = self._tensor(xtest)
         t = xtest.shape[0]
         method = method or ("exact" if t <= exact_threshold else "hutchinson")
-        if (method == "exact" and self.precision == "double"
-                and self.var_refine > 0):
-            raise NotImplementedError(
-                "the df-refined matrix-free variance (precision='double', "
-                "var_refine >= 1) needs compensated.df_gemm, ROADMAP Queue 1 "
-                "item 4; pass var_refine=0 for the f32 block-CG variance")
         mu = self.mean(xtest)
         M_inv = self._M_inv
+        if (method == "exact" and self.precision == "double"
+                and self.var_refine > 0):
+            # the df path builds its own df cross Gram: no f32 K_star
+            return mu, self._std_exact_df(xtest, self._matmat, M_inv)
         K_star = self.kernel_object.cross(xtest, self.x)       # (t, n)
         kss = self.kernel_object.diag(xtest)
         if method == "exact":
-            solver = (cg_solve_block_segmented if self.n > SEGMENT_ABOVE
-                      else cg_solve_block)
             B = K_star.T                                       # (n, t)
             quads = []
             for c0 in range(0, t, 128):
                 blk = B[:, c0:c0 + 128]
-                sol, _ = solver(self._matmat, blk, M_inv=M_inv, tol=self.tol,
-                                maxiter=self.maxiter)
+                sol, _ = cg_solve_block(self._matmat, blk, M_inv=M_inv,
+                                        tol=self.tol, maxiter=self.maxiter)
                 quads.append(torch.sum(blk * sol, dim=0))
             var = torch.clamp(kss - torch.cat(quads), min=1e-12)
             return mu, torch.sqrt(var)[:, None]
@@ -662,35 +667,107 @@ class IterativeGP:
         var = torch.clamp(kss - est, min=1e-12)
         return mu, torch.sqrt(var)[:, None]
 
+    def _std_exact_df(self, xtest, mm, M_blk):
+        """The df-refined matrix-free predictive std (the reference's
+        float64 variance, gauss_procc.py:391-399, at any n). Per 128-column
+        block of the df cross Gram B = K(x, xtest), built in (df_chunk, t)
+        row strips (`gram_df`):
+          1. an f32 block (P)CG solve W ≈ (K + σ²I)⁻¹Bh, accurate to the f32
+             product's floor (~√n·eps relative);
+          2. `var_refine` residual steps R = B − K·W − σ²W, the row strips
+             of (Kh + Kl)·W formed in float64 from each df strip pair by
+             `torch.matmul` (the JAX package's compensated `df_gemm`, which
+             needs no float64 there, is not ported), the residual rounded
+             to the model's dtype for one more block solve;
+          3. the row-strip df quadratic form q = Σ W ⊙ (2B − K·W − σ²W)
+             (`qform_refined_strip`, csrc/qform_df.cu on the card), second
+             order in W's remaining residual, summed over strips in
+             float64;
+          4. var = k** − q in float64, k** from the df diagonal.
+        No dense Gram is stored: every step sweeps (df_chunk, n) strips."""
+        desc = self._df_desc()
+        ko, x, c = self.kernel_object, self.x, self.df_chunk
+        n, t = x.shape[0], xtest.shape[0]
+        f64, s2 = torch.float64, self.s * self.s
+
+        def strip(r0, b):
+            Kh, Kl = df_gram_from_desc(ko, {}, x[r0:r0 + c], b, desc)
+            return Kh.to(self.dtype), Kl.to(self.dtype)
+
+        pairs = [strip(r0, xtest) for r0 in range(0, n, c)]
+        Bh = torch.cat([p[0] for p in pairs])
+        Bl = torch.cat([p[1] for p in pairs])
+        del pairs
+        kh, kl = df_diag_from_desc(ko, {}, xtest, desc)
+        kss = kh.to(f64) + kl.to(f64)
+        stds = []
+        for c0 in range(0, t, 128):
+            bh, bl = Bh[:, c0:c0 + 128], Bl[:, c0:c0 + 128]
+            W, _ = cg_solve_block(mm, bh, M_inv=M_blk, tol=self.tol,
+                                  maxiter=self.maxiter)
+            for _ in range(self.var_refine):
+                W64, Rs = W.to(f64), []
+                for r0 in range(0, n, c):
+                    Kh, Kl = strip(r0, x)
+                    P = (Kh.to(f64) + Kl.to(f64)) @ W64
+                    del Kh, Kl
+                    rows = slice(r0, r0 + c)
+                    Rs.append((bh[rows].to(f64) + bl[rows].to(f64) - P
+                               - s2 * W64[rows]).to(self.dtype))
+                dW, _ = cg_solve_block(mm, torch.cat(Rs), M_inv=M_blk,
+                                       tol=self.tol, maxiter=self.maxiter)
+                W = W + dW
+            q = torch.zeros(bh.shape[1], dtype=f64, device=self.device)
+            for r0 in range(0, n, c):
+                Kh, Kl = strip(r0, x)
+                rows = slice(r0, r0 + c)
+                qh, ql = qform_refined_strip(Kh, Kl, W, W[rows], bh[rows],
+                                             bl[rows], self.s)
+                q += qh.to(f64) + ql.to(f64)
+            var = torch.clamp(kss[c0:c0 + 128] - q, min=1e-12)
+            stds.append(torch.sqrt(var).to(self.dtype))
+        return torch.cat(stds)[:, None]
+
     # -- hyperparameters --------------------------------------------------
     def optimize_params(self, optimize=("gamma", "noise"), steps=30, lr=0.1,
                         probes=64, tol=1e-2, seed=0, verbose=False,
                         refit=True, **kwargs):
         """Hyperparameter fit on the matrix-free evidence
         (`bbmm.fit_evidence_sum`), the large-n counterpart of
-        GaussianProcess.optimize_params, for kernels that are sums of fused
-        atoms (SE / ARD / Matérn, `k1 + k2`, coordinate groups): per atom
-        (γ_a, κ_a), ARD vectors fitted per dim. Writes the fitted values
-        back into `kernel_object.params_dict` (an ARD atom on a group
-        scatters its vector into the group's entries), `self.s` when
-        "noise" is optimized, and refits. The preconditioner rank is the
-        model's, resolved for n (`resolve_precond_rank`), unless
-        `precond_rank` is passed. Any other kernel raises: its evidence fit
-        autodiffs through the row-chunked Gram (ROADMAP Queue 1 item 5).
-        Requires fit_gp (uses the stored x, y)."""
-        from stpy_tpu_torch.parallel.bbmm import fit_evidence_sum
+        GaussianProcess.optimize_params. Sums of fused atoms (SE / ARD /
+        Matérn, `k1 + k2`, coordinate groups) go to `fit_evidence_sum`: per
+        atom (γ_a, κ_a), ARD vectors fitted per dim. Any other kernel
+        (products, Laplace, algebra) goes to `fit_evidence_general`, which
+        autodiffs through the row-chunked Gram over every gamma/kappa leaf
+        (chunk: the model's `chunk`). Writes the fitted values back into
+        `kernel_object.params_dict` (an ARD atom on a group scatters its
+        vector into the group's entries), `self.s` when "noise" is
+        optimized, and refits. The preconditioner rank is the model's,
+        resolved for n (`resolve_precond_rank`), unless `precond_rank` is
+        passed. Requires fit_gp (uses the stored x, y)."""
+        from stpy_tpu_torch.parallel.bbmm import (
+            fit_evidence_general, fit_evidence_sum,
+        )
 
         if getattr(self, "x", None) is None:
             raise RuntimeError("call fit_gp before optimize_params")
         ko = self.kernel_object
         atoms = fast_atoms(ko)
-        if atoms is None:
-            raise NotImplementedError(
-                "optimize_params for a kernel that is not a sum of fused "
-                "atoms autodiffs through the row-chunked Gram (bbmm's "
-                "general tier, ROADMAP Queue 1 item 5)")
         kwargs.setdefault("precond_rank", resolve_precond_rank(
             self.precond_rank, int(self.x.shape[0])))
+        if atoms is None:
+            out = fit_evidence_general(
+                ko, self.x, self.y.reshape(-1), noise0=float(self.s),
+                optimize=optimize, steps=steps, lr=lr, probes=probes, tol=tol,
+                seed=seed, verbose=verbose, chunk=self.chunk, **kwargs)
+            for ak, sub in out["params"].items():
+                for pk, val in sub.items():
+                    ko.params_dict[ak][pk] = val.to(ko.params_dict[ak][pk])
+            if "noise" in optimize:
+                self.s = out["noise"]
+            if refit:
+                self.fit_gp(self.x, self.y)
+            return out
         desc = tuple((a.family, a.nu, a.group) for a in atoms)
         gk = [atom_params(ko, a) for a in atoms]
         out = fit_evidence_sum(

@@ -11,9 +11,13 @@ tiers, neither stores an (n, n) Gram:
   * general tier (`make_chunked_matvec` / `make_chunked_matmat`): any kernel
     the port can build (products, Laplace, …), one (chunk, n) block of
     `kernel_object.eval_params` at a time — on the card through the ported
-    Gram kernels. No autograd: the JAX tier's `jax.checkpoint` has no
-    counterpart until the hyperparameter fit is ported (ROADMAP Queue 1
-    item 5).
+    Gram kernels. Differentiable in the `pd` passed per call, through the
+    hand Grams' autograd Functions (`ops.gram._Gram`, `ops.gram_l1._GramL1`);
+    each chunk is checkpointed (`torch.utils.checkpoint`, the JAX tier's
+    `jax.checkpoint`), so a graph over all chunks holds no (chunk, n) tile
+    and the backward rebuilds one at a time: O(n·chunk) memory in both
+    directions, also for a product kernel, whose `*` would otherwise keep
+    both factors' tiles.
 
 The mesh variants (`make_*_sharded`) wait for torch.distributed (ROADMAP
 Queue 1 item 11).
@@ -24,6 +28,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from stpy_tpu_torch.ops.gram import _as_factor
 from stpy_tpu_torch.ops.gram_matvec import gram_matmat_scaled, gram_matvec_scaled
@@ -122,28 +127,46 @@ def make_sum_matmat(x, atoms, gammas, kappas, *, noise=0.0):
     return matmat
 
 
+def _requires_grad(pd) -> bool:
+    return any(isinstance(v, torch.Tensor) and v.requires_grad
+               for p in pd.values() for v in p.values())
+
+
 def make_chunked_matvec(kernel_object, x, params_dict=None, *, noise=0.0,
                         chunk=2048):
-    """(K + σ²I)·v for ANY kernel, one (chunk, n) Gram block at a time."""
+    """(K(θ) + σ²I)·v for ANY kernel, one (chunk, n) Gram block at a time:
+    `matvec(v, pd=None)`, θ the `pd` of the call (else `params_dict`, else
+    the kernel's). Differentiable in `pd` (see `make_chunked_matmat`); σ²
+    enters outside, so a caller differentiates the noise itself."""
     matmat = make_chunked_matmat(kernel_object, x, params_dict, noise=noise,
                                  chunk=chunk)
 
-    def matvec(v):
-        return matmat(v.reshape(-1, 1))[:, 0]
+    def matvec(v, pd=None):
+        return matmat(v.reshape(-1, 1), pd)[:, 0]
 
     return matvec
 
 
 def make_chunked_matmat(kernel_object, x, params_dict=None, *, noise=0.0,
                         chunk=2048):
-    """Block-RHS version: (K + σ²I)·V, V of shape (n, r)."""
-    pd = params_dict or kernel_object.params_dict
+    """Block-RHS version: (K(θ) + σ²I)·V, V of shape (n, r). Where a leaf
+    of `pd` needs a gradient (and grad mode is on), each chunk's product
+    runs under a non-reentrant checkpoint: the graph keeps the chunk's
+    rows, not its (chunk, n) tile, and the backward recomputes the tile,
+    one chunk at a time."""
 
-    def matmat(V):
+    def matmat(V, pd=None):
+        pd_eff = pd if pd is not None else (
+            params_dict or kernel_object.params_dict)
+
+        def rows(xc, V):
+            return kernel_object.eval_params(pd_eff, xc, x) @ V
+
+        ckpt = torch.is_grad_enabled() and _requires_grad(pd_eff)
         out = torch.cat([
-            kernel_object.eval_params(pd, x[r0:r0 + chunk], x) @ V
+            checkpoint(rows, x[r0:r0 + chunk], V, use_reentrant=False)
+            if ckpt else rows(x[r0:r0 + chunk], V)
             for r0 in range(0, x.shape[0], chunk)])
         return out + (noise * noise) * V
 
     return matmat
-

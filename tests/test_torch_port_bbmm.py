@@ -85,6 +85,7 @@ def same_probes(monkeypatch):
     per-probe draw of key k its column k, the split keys 0..p-1; torch:
     every `randint` returns Z's bits)."""
     jbb._evg_core.cache_clear()
+    jbb._evg_general_core.cache_clear()
 
     def feed(Z):
         Zj = jnp.asarray(Z)
@@ -101,6 +102,7 @@ def same_probes(monkeypatch):
 
     yield feed
     jbb._evg_core.cache_clear()
+    jbb._evg_general_core.cache_clear()
 
 
 # ---------------------------------------------------------------------------
@@ -445,8 +447,36 @@ def test_randomized_eig_precond_matches_jax(monkeypatch):
         <= 1e-8
 
 
-def test_general_tier_raises_naming_the_roadmap():
-    for fn in (tpar.evidence_value_and_grad_general,
-               tpar.fit_evidence_general):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-            fn(make_kernel(TorchKernel, "se", device="cpu"), None, None)
+@pytest.mark.parametrize("what", ["evidence", "fit"])
+def test_general_tier_matches_jax_on_a_product_kernel(what, same_probes):
+    """bbmm's general tier, once a raise: on the same probes the port's
+    general evidence gradient and a 2-step general fit of the product
+    kernel se*matern32 equal the JAX package's (EVIDENCE_RTOL; the fuller
+    cases are tests/test_torch_port_bbmm_general.py)."""
+    x, y = data(60, 3, seed=8)
+    same_probes(signs(60, 6))
+    jk = make_kernel(JaxKernel, "se*matern32")
+    tk = make_kernel(TorchKernel, "se*matern32", device="cpu",
+                     dtype=torch.float64)
+    kw = dict(chunk=25, probes=6, **TIGHT)
+    if what == "evidence":
+        _, jg = jbb.evidence_value_and_grad_general(
+            jk, jnp.asarray(x), jnp.asarray(y), noise=0.3,
+            compute_value=False, **kw)
+        _, tg = tpar.evidence_value_and_grad_general(
+            tk, torch.as_tensor(x), torch.as_tensor(y), noise=0.3,
+            compute_value=False, **kw)
+        pairs = [(tg["noise"], jg["noise"])] + [
+            (tg["params"][a][k], jg["params"][a][k])
+            for a in jg["params"] for k in jg["params"][a]]
+    else:
+        fit = dict(steps=2, lr=0.15, tol=0.0, **kw)
+        jo = jbb.fit_evidence_general(jk, jnp.asarray(x), jnp.asarray(y),
+                                      0.3, **fit)
+        to = tpar.fit_evidence_general(tk, torch.as_tensor(x),
+                                       torch.as_tensor(y), 0.3, **fit)
+        pairs = [(to["noise"], jo["noise"])] + [
+            (to["params"][a][k], jo["params"][a][k])
+            for a in jo["params"] for k in jo["params"][a]]
+    for got, want in pairs:
+        assert rel_err(got, want) <= EVIDENCE_RTOL

@@ -440,18 +440,114 @@ def test_unported_paths_raise_naming_the_roadmap(gp_data):
     x, y, xt = gp_data
     with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
         tit.IterativeGP(torch_kernel("se"), mesh=object())
-    gp = tit.IterativeGP(torch_kernel("se"), s=S, lazy=True,
-                         precision="double")
-    gp.fit_gp(x, y)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        gp.mean_std(xt)
-    # the evidence fit of a kernel that is not a sum of fused atoms
-    lap = tit.IterativeGP(torch_kernel("matern32*laplace"), s=S, lazy=True)
-    lap.fit_gp(x[:40], y[:40])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        lap.optimize_params()
+    gp = tit.IterativeGP(torch_kernel("se"), s=S, lazy=True)
+    gp.fit_gp(x[:40], y[:40])
     with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
         gp.sample_pathwise(xt, None)
+
+
+def df_variance_case(cls, **kw):
+    """tests/test_parallel.py:552-590's kernel: SE(0.5) + Matérn-5/2(0.8),
+    d = 2."""
+    return (cls(kernel_name="squared_exponential", gamma=0.5, d=2, **kw)
+            + cls(kernel_name="matern", gamma=0.8, nu=2.5, d=2, **kw))
+
+
+@pytest.fixture(scope="module")
+def df_variance_data():
+    rng = np.random.default_rng(52)
+    x = rng.uniform(-1, 1, (250, 2))
+    return x, np.sin(3 * x[:, :1]), rng.uniform(-1, 1, (140, 2))
+
+
+@pytest.mark.parametrize("lazy", [True, False])
+def test_df_refined_variance_matches_jax(df_variance_data, lazy):
+    """`_std_exact_df` (precision="double", var_refine=1, both tiers)
+    against the JAX package's and against the dense double tier's refined
+    variance (tests/test_parallel.py:552-590 and its bars: mean within
+    1e-7, variance within 1e-6 relative); the port and the JAX package
+    agree to 1e-10 on the variance."""
+    from stpy_tpu.kernels import KernelFunction as JaxKernel
+    from stpy_tpu.models import GaussianProcess as JaxGP
+    from stpy_tpu_torch import KernelFunction as TorchKernel
+
+    x, y, xt = df_variance_data
+    kw = dict(s=0.2, lazy=lazy, precision="double", tol=1e-9, maxiter=800,
+              df_chunk=64)
+    jg = jit_.IterativeGP(df_variance_case(JaxKernel), var_refine=1, **kw)
+    tg = tit.IterativeGP(df_variance_case(TorchKernel, device="cpu",
+                                          dtype=torch.float64), **kw)
+    assert tg.var_refine == 1     # the constructor's default
+    jg.fit_gp(jnp.asarray(x), jnp.asarray(y))
+    tg.fit_gp(x, y)
+    jm, js = jg.mean_std(jnp.asarray(xt), method="exact")
+    tm, ts = tg.mean_std(xt, method="exact")
+    assert ts.shape == (140, 1)
+    tv, jv = ts.numpy().ravel() ** 2, np.asarray(js).ravel() ** 2
+    assert np.max(np.abs(tv - jv) / jv) <= 1e-10
+    assert rel_err(tm.numpy(), jm) <= MEAN_RTOL
+    ref = JaxGP(kernel=df_variance_case(JaxKernel), s=0.2,
+                precision="double", var_refine=1)
+    ref.fit_gp(jnp.asarray(x), jnp.asarray(y))
+    mu_ref, std_ref = ref.mean_std(jnp.asarray(xt))
+    v_ref = np.asarray(std_ref).ravel() ** 2
+    assert np.max(np.abs(tm.numpy() - np.asarray(mu_ref))) < 1e-7
+    assert np.max(np.abs(tv - v_ref) / np.maximum(v_ref, 1e-12)) < 1e-6
+
+
+@pytest.fixture
+def same_probes(monkeypatch):
+    """`feed(Z)`: both packages draw their Rademacher block as Z (the JAX
+    package's compiled general evidence cleared before and after)."""
+    from stpy_tpu.parallel import bbmm as jbb
+
+    jbb._evg_general_core.cache_clear()
+
+    def feed(Z):
+        Zj = jnp.asarray(Z)
+        monkeypatch.setattr(jax.random, "split",
+                            lambda key, num=2: jnp.arange(num))
+        monkeypatch.setattr(
+            jax.random, "rademacher",
+            lambda k, shape, dtype=None: Zj if len(shape) == 2 else Zj[:, k])
+        bits = torch.as_tensor((Z + 1) / 2, dtype=torch.int64)
+        monkeypatch.setattr(
+            torch, "randint",
+            lambda lo, hi, shape, generator=None, device=None, dtype=None:
+            bits)
+
+    yield feed
+    jbb._evg_general_core.cache_clear()
+
+
+@pytest.mark.parametrize("case", ["matern32*laplace", "laplace"])
+def test_general_optimize_params_writes_back_like_jax(gp_data, case,
+                                                      same_probes):
+    """A kernel that is not a sum of fused atoms fits on bbmm's general
+    tier: every gamma / kappa leaf and the noise, written back into the
+    params dict and `s`, then refitted, as the JAX package does (1e-7,
+    the evidence tests' bar)."""
+    x, y, xt = gp_data
+    x, y = x[:80], y[:80]
+    same_probes(np.random.default_rng(7).choice([-1.0, 1.0], (80, 8)))
+    jg, tg = gp_pair(case, lazy=True, chunk=32, precond_rank=0)
+    jg.fit_gp(jnp.asarray(x), jnp.asarray(y))
+    tg.fit_gp(x, y)
+    kw = dict(optimize=("gamma", "kappa", "noise"), steps=3, lr=0.15,
+              probes=8, tol=0.0, cg_tol=1e-12, cg_maxiter=800,
+              probe_tol=1e-12, probe_maxiter=800)
+    jout = jg.optimize_params(**kw)
+    tout = tg.optimize_params(**kw)
+    assert tout["steps_run"] == jout["steps_run"] == 3
+    for idx, p in tg.kernel_object.params_dict.items():
+        for key, val in p.items():
+            want = np.asarray(jg.kernel_object.params_dict[idx][key])
+            assert val.dtype == torch.float64
+            assert tuple(val.shape) == want.shape, (idx, key)
+            assert rel_err(val.numpy(), want) <= 1e-7, (idx, key)
+    assert abs(tg.s - jg.s) <= 1e-7 * jg.s and tg.s != S
+    assert tg.fit_status["converged"]
+    assert rel_err(tg.mean(xt).numpy(), jg.mean(jnp.asarray(xt))) <= 1e-6
 
 
 def test_maxiter_and_stall_warnings_match_jax(gp_data):
@@ -502,27 +598,35 @@ def test_f32_model_on_the_cpu_matches_the_f64_model(gp_data):
 
 
 def test_segmented_dispatch_above_32768(monkeypatch, gp_data):
-    # the fit and the exact variance take the segmented solvers above the
-    # threshold, as in the JAX package; the threshold is lowered here
+    # the port runs the fit and the exact variance (f32 and df-refined) on
+    # the single-loop solvers at any n: no size switches to the segmented
+    # ones, which the JAX package takes above 32768 (a TPU workaround)
     x, y, xt = gp_data
     calls = []
-    for name in ("cg_solve_segmented", "cg_solve_block_segmented"):
+    for name in ("cg_solve", "cg_solve_block", "cg_solve_segmented",
+                 "cg_solve_block_segmented"):
         real = getattr(tit, name)
         monkeypatch.setattr(
             tit, name,
             lambda *a, _real=real, _name=name, **k: calls.append(_name)
             or _real(*a, **k))
-    monkeypatch.setattr(tit, "SEGMENT_ABOVE", 200)
+    assert not hasattr(tit, "SEGMENT_ABOVE")
     gp = tit.IterativeGP(torch_kernel("se"), s=S, tol=1e-10, lazy=True)
     gp.fit_gp(x, y)
     gp.mean_std(xt)
-    # the fit's single-RHS adapter runs the block solver inside, then the
-    # variance runs it once per 128-column block of the 150 test points
-    assert calls == ["cg_solve_segmented"] + ["cg_solve_block_segmented"] * 3
+    # the fit's solve, then one block solve per 128-column block
+    assert calls == ["cg_solve"] + ["cg_solve_block"] * 2
+    calls.clear()
+    gpd = tit.IterativeGP(torch_kernel("se"), s=S, tol=1e-10, lazy=True,
+                          precision="double", df_chunk=100)
+    gpd.fit_gp(x[:120], y[:120])
+    gpd.mean_std(xt[:20])
+    assert set(calls) == {"cg_solve", "cg_solve_block"}
     ref = tit.IterativeGP(torch_kernel("se"), s=S, tol=1e-10, lazy=True)
-    monkeypatch.setattr(tit, "SEGMENT_ABOVE", 32768)
     ref.fit_gp(x, y)
-    assert rel_err(gp.mean(xt).numpy(), ref.mean(xt).numpy()) <= 1e-8
+    seg, _, _ = tit.cg_solve_segmented(ref._matvec, torch.as_tensor(y[:, 0]),
+                                       tol=1e-10, maxiter=600)
+    assert rel_err(gp.A[:, 0].numpy(), seg.numpy()) <= 1e-8
 
 
 @pytest.mark.parametrize("precision", ["single", "double"])

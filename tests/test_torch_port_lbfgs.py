@@ -140,6 +140,13 @@ def test_golden_section_matches_jax():
     assert float(got) == pytest.approx(float(want), rel=1e-14)
 
 
-def test_zoom_line_search_raises_naming_the_roadmap():
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 6"):
-        minimize_lbfgs(rosen_torch, torch.zeros(3, dtype=torch.float64))
+def test_zoom_line_search_matches_jax():
+    # the JAX default line search, once a raise here: the converged
+    # Rosenbrock fit from the same start (tests/test_torch_port_zoom.py
+    # holds its iterates step by step)
+    x0 = np.array([-1.2, 1.0, 0.5])
+    t = minimize_lbfgs(rosen_torch, torch.as_tensor(x0), max_iter=200)
+    j = jl.minimize_lbfgs(rosen_jax, jnp.asarray(x0), max_iter=200)
+    assert t.converged and bool(j.converged)
+    assert t.iterations == int(j.iterations)
+    assert np.max(np.abs(t.x.numpy() - np.asarray(j.x))) <= FINAL_RTOL
