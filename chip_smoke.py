@@ -44,7 +44,14 @@ matrix-free variance at n = 32768 against float64, the robust losses
 (fit, serve, MAP evidence) against the float64 model, ucb_optimize, the
 gradient helpers, sample_and_max / sample_iteratively_max, volume_mean and
 OnlineGP, each sub-phase holding the hand kernels it launched (and the
-Gram Functions' derivatives) against their plain versions at its shapes.
+Gram Functions' derivatives) against their plain versions at its shapes;
+then (phase 16) the feature-GP and Nyström slice: benchmarks/run_all.py
+config 2 (the exact GP, then HermiteEmbedding + KernelizedFeatures: fit,
+mean_std, 64 draws) and config 3 (NystromFeatures at n = 50000 on the
+additive Matérn + SE kernel) against the port's float64 models on the same
+embedding and landmarks, and IterativeGP.sample_pathwise on a lazy GP at
+n = 32768 against its float64 residual and a dense float64 posterior, with
+gram, gram_matmat and gram_matvec held at their shapes there.
 Phase 2c
 holds both matrix-free kernels in their derivative
 shapes ("dk_sq", "dk") too, and gram_matvec's backward against float64
@@ -90,7 +97,9 @@ from stpy_tpu_torch.ops.chol_leaf import (
 )
 from stpy_tpu_torch.ops.gemv_df import gemv_df, gemv_df_plain
 from stpy_tpu_torch.kernels.df_plan import df_gram_from_desc
-from stpy_tpu_torch.models import OnlineGP, exact_gp
+from stpy_tpu_torch.embeddings import HermiteEmbedding, NystromFeatures
+from stpy_tpu_torch.embeddings.nystrom import EIG_CUT
+from stpy_tpu_torch.models import KernelizedFeatures, OnlineGP, exact_gp
 from stpy_tpu_torch.ops.gram import (
     gram, gram_plain, gram_scaled, gram_se, shape_and_slope,
 )
@@ -519,6 +528,50 @@ VOLUME_RELU_RTOL, VOLUME_OBJ_RTOL = 1e-6, 1e-3
 # mean within ONLINE_MEAN_RTOL of its largest entry, std within
 # ONLINE_STD_RTOL entry by entry (the CPU's f32: 2.3e-6 and 5.0e-6).
 ONLINE_CAP, ONLINE_MEAN_RTOL, ONLINE_STD_RTOL = 4096, 1e-4, 1e-4
+
+# Phase 16: the feature-GP and Nyström slice (embeddings, KernelizedFeatures,
+# NystromFeatures, IterativeGP.sample_pathwise). Its float64 references are
+# the port's own models in float64 on the card, on the same embeddings and
+# landmarks, their atoms evaluating the plain versions (`plain64_atoms`).
+# Each timed call: one warm-up, then FEATURE_REPS runs, median and IQR, as
+# benchmarks/run_all.py times them.
+FEATURE_REPS = 5
+# 16.1: run_all.py config 2 as written (:94-127): x ~ U(−1, 1)^(512 × 2),
+# y = sin 3x₀ · cos 2x₁ (numpy seed 1), 1024 test points; the port's exact
+# GP (γ = 0.5, s = 0.05), then HermiteEmbedding(0.5, 512, 2) (484 features)
+# with KernelizedFeatures(s = 0.05): fit_gp, mean_std and sample of 64 paths.
+# Against the float64 feature GP: the mean within CONFIG2_MEAN_RTOL of
+# max|μ64| (the CPU's f32 gap: 2.8e-7, tools/feature_f32_gap.py), the std
+# within CONFIG2_STD_RTOL entry by entry (the CPU's f32 gap: 9.7e-5); the
+# draws' mean within DRAW_SE standard errors σ64/√64 of μ64 at every point,
+# and their covariance against Φ·s²L Lᵀ·Φᵀ of the factor L that sample's
+# ladder made of the f32 V⁻¹ within DRAW_SE standard errors in Frobenius
+# norm (phase 14.4's measure).
+CONFIG2_N, CONFIG2_T, CONFIG2_M, CONFIG2_DRAWS = 512, 1024, 512, 64
+CONFIG2_GAMMA, CONFIG2_S = 0.5, 0.05
+CONFIG2_MEAN_RTOL, CONFIG2_STD_RTOL, DRAW_SE = 1e-4, 1e-3, 5.0
+# 16.2: run_all.py config 3 as written (:130-159): x ~ U(−1, 1)^(50000 × 2)
+# in f32, y = sin 3x₀ + x₁ (numpy seed 2), Matérn-3/2(0.4) on x₀ +
+# SE(0.6) on x₁, NystromFeatures(m = 512, "uniform", s = 0.05), fit_gp and
+# mean_std on the first CONFIG3_HEAD points. Against the float64 model on
+# the same landmarks: the mean within CONFIG3_MEAN_RTOL of max|μ64| (the
+# CPU's f32 gap at this size: 7.6e-5; the bar is five times it), and
+# train_mae_head within CONFIG3_MAE_ATOL of the float64 model's.
+CONFIG3_N, CONFIG3_M, CONFIG3_S, CONFIG3_HEAD = 50_000, 512, 0.05, 2048
+CONFIG3_ATOMS = (("matern", 1.5, 0.4, 0), ("se", 1.5, 0.6, 1))
+CONFIG3_MEAN_RTOL, CONFIG3_MAE_ATOL = 4e-4, 1e-3
+# 16.3: IterativeGP(lazy=True) with SE(0.5), s = 0.1 on config 2's function
+# at n = PATHWISE_N, d = 2 (numpy seed 1), the largest n whose float64
+# dense posterior the card factors (phase 8); sample_pathwise with
+# HermiteEmbedding(0.5, 512, 2), 64 paths at 1024 test points. Held: every
+# column's float64 residual of its CG correction at most
+# PATHWISE_RESIDUAL_MAX; the paths' mean within DRAW_SE standard errors
+# (σ64/√64) of the dense float64 mean plus the embedding's kernel error.
+# Without a preconditioner each path's CG needs 734-886 iterations here
+# (an H100), past the default maxiter of 500: the GP takes PATHWISE_MAXITER.
+PATHWISE_N, PATHWISE_T, PATHWISE_DRAWS = 32768, 1024, 64
+PATHWISE_GAMMA, PATHWISE_S, PATHWISE_MAXITER = 0.5, 0.1, 2000
+PATHWISE_RESIDUAL_MAX = 1e-4
 
 REPLACES = {
     "gram": ("stpy_tpu_torch/csrc/gram.cu", "stpy_tpu/ops/pallas_gram.py:63"),
@@ -2647,23 +2700,31 @@ def sample_phase(gp, dev):
 # phase 15: the rest of the GP models
 # ---------------------------------------------------------------------------
 
+def plain64_atoms(kernel):
+    """`kernel` (float64) with every atom evaluating its plain version on
+    its group (`gram_plain`, `gram_l1_plain`: plain torch ops,
+    differentiable, no hand kernel), so the port's own model code runs in
+    float64 around it on the card."""
+    for atom in kernel._atoms:
+        group, nu, name = atom.static["group"], atom.static.get("nu"), atom.name
+
+        def fn(p, a, b, group=group, nu=nu, name=name):
+            g, kappa = p["gamma"].to(a.dtype), p.get("kappa", 1.0)
+            a, b = a[:, group], b[:, group]
+            if name == "laplace":
+                return gram_l1_plain(a, b, 1.0 / (g * g), kappa)
+            if name == "squared_exponential":
+                return gram_plain(a / g, b / g, kappa, "se")
+            return gram_plain(a / g, b / g, kappa, "matern", nu)
+        atom.fn = fn
+    return kernel
+
+
 def plain64_kernel(dev, name, gamma, d, nu=1.5):
-    """The float64 reference model's kernel on the card: a KernelFunction in
-    float64 whose atom evaluates the plain version (`gram_plain`,
-    `gram_l1_plain`: plain torch ops, differentiable, no hand kernel), so
-    the port's own model code runs in float64 around it."""
-    k = KernelFunction(kernel_name=name, gamma=gamma, nu=nu, d=d, device=dev,
-                       dtype=torch.float64)
-    fam = "se" if name == "squared_exponential" else "matern"
-
-    def fn(p, a, b):
-        g, kappa = p["gamma"].to(a.dtype), p.get("kappa", 1.0)
-        if name == "laplace":
-            return gram_l1_plain(a, b, 1.0 / (g * g), kappa)
-        return gram_plain(a / g, b / g, kappa, fam, nu)
-
-    k._atoms[0].fn = fn
-    return k
+    """The float64 reference model's kernel on the card: one atom in
+    float64 on its plain version (`plain64_atoms`)."""
+    return plain64_atoms(KernelFunction(kernel_name=name, gamma=gamma, nu=nu,
+                                        d=d, device=dev, dtype=torch.float64))
 
 
 def dense_solve(y, s, kernel_part):
@@ -3427,6 +3488,277 @@ def online_phase(dev):
             "std": es, "launches": nonzero(counts)}
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the feature-GP and Nyström slice
+# ---------------------------------------------------------------------------
+
+def timed_reps(run, reps=FEATURE_REPS):
+    """run() once to warm up, then `reps` runs each ended by a synchronize:
+    ({wall_s: median, wall_iqr_s, walls_s, warmup_s}, the last output)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    walls = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    q1, q3 = np.percentile(walls, [25, 75])
+    return {"wall_s": float(np.median(walls)), "wall_iqr_s": float(q3 - q1),
+            "walls_s": walls, "warmup_s": warm}, out
+
+
+def config2_data(n=CONFIG2_N, t=CONFIG2_T):
+    """run_all.py:99-103 (numpy seed 1): x, xt ~ U(−1, 1)², y = sin 3x₀ ·
+    cos 2x₁, float64 numpy (each model converts to its dtype)."""
+    rng = np.random.default_rng(1)
+    x = rng.uniform(-1, 1, (n, 2))
+    y = np.sin(3 * x[:, :1]) * np.cos(2 * x[:, 1:])
+    return x, y, rng.uniform(-1, 1, (t, 2))
+
+
+def feature_gp(dev, dtype):
+    emb = HermiteEmbedding(gamma=CONFIG2_GAMMA, m=CONFIG2_M, d=2, device=dev,
+                           dtype=dtype)
+    return KernelizedFeatures(embedding=emb, m=emb.get_m(), s=CONFIG2_S, d=2)
+
+
+def config2_phase(dev):
+    """16.1: run_all.py config 2 as written (see CONFIG2_N's note)."""
+    x, y, xt = config2_data()
+    gp = GaussianProcess(gamma=CONFIG2_GAMMA, s=CONFIG2_S, d=2, device=dev)
+    (mu_e, std_e), exact_s, exact_counts = counted(
+        lambda: (gp.fit_gp(x, y), gp.mean_std(xt))[1])
+    F = feature_gp(dev, torch.float32)
+    gen = torch.Generator(device=dev)
+
+    def run():
+        gen.manual_seed(0)
+        F.fit_gp(x, y)
+        mu, std = F.mean_std(xt)
+        return mu, std, F.sample(xt, size=CONFIG2_DRAWS, generator=gen)
+
+    stats, _ = timed_reps(run)
+    (mu, std, f), _, counts = counted(run)
+    F64 = feature_gp(dev, torch.float64)
+    F64.fit_gp(x, y)
+    mu64, std64 = F64.mean_std(xt)
+    mean_err = float((mu.double() - mu64).abs().max() / mu64.abs().max())
+    std_err = float(((std.double() - std64) / std64).abs().max())
+    mu_vs_exact = float((mu - mu_e).abs().max())
+    std_vs_exact = float((std - std_e).abs().max())
+    # the draws: mean against float64, covariance against the factor sample
+    # made (the same ladder on the same V⁻¹)
+    n = CONFIG2_DRAWS
+    fd = f.double()
+    se = std64[:, 0] / math.sqrt(n)
+    draw_mean = float(((fd.mean(dim=1) - mu64[:, 0]).abs() / se).max())
+    res = linalg.safe_cholesky(F.get_invV().clone())
+    PL = F.embed(xt).double() @ (res.L.double() * CONFIG2_S)
+    C = PL @ PL.T
+    dev_ = fd - (F.embed(xt) @ F.theta_mean()).double()
+    S_ = dev_ @ dev_.T / n
+    cov_err = float(torch.linalg.matrix_norm(S_ - C))
+    cov_se = math.sqrt((float(torch.linalg.matrix_norm(C)) ** 2
+                        + float(torch.trace(C)) ** 2) / n)
+    var_ratio = float((C.diagonal() / std64[:, 0] ** 2).median())
+    jitter_rel = float(res.jitter / F.get_invV().diagonal().mean())
+    print(f"  16.1 config 2: exact GP fit + mean_std {exact_s!r} s (launches "
+          f"{nonzero(exact_counts)}); feature GP (m = {F.m}) fit + mean_std "
+          f"+ {n} draws: median {stats['wall_s']!r} s, IQR "
+          f"{stats['wall_iqr_s']!r} s (warm-up {stats['warmup_s']!r} s; "
+          f"launches {nonzero(counts)}); mu_err_vs_exact {mu_vs_exact!r}, "
+          f"std_err_vs_exact {std_vs_exact!r}")
+    print(f"    against the float64 feature GP: mean {mean_err!r} of max|μ64| "
+          f"(bar {CONFIG2_MEAN_RTOL}), std {std_err!r} (bar "
+          f"{CONFIG2_STD_RTOL}); draws: max |x̄ − μ64|/(σ64/√{n}) "
+          f"{draw_mean!r} (bar {DRAW_SE}), ‖S − ΦLLᵀΦᵀ‖_F {cov_err!r} (bar "
+          f"{DRAW_SE} × {cov_se!r}), ladder jitter {jitter_rel!r} of V⁻¹'s "
+          f"mean diagonal, median var(ΦLLᵀΦᵀ)/σ64² {var_ratio!r}")
+    assert mean_err <= CONFIG2_MEAN_RTOL, mean_err
+    assert std_err <= CONFIG2_STD_RTOL, std_err
+    assert draw_mean <= DRAW_SE, draw_mean
+    assert cov_err <= DRAW_SE * cov_se, (cov_err, cov_se)
+    assert bool(torch.isfinite(f).all()) and f.shape == (CONFIG2_T, n)
+    assert exact_counts["gram"] > 0, exact_counts
+    xs, xts = gp.x / CONFIG2_GAMMA, gp._tensor(xt) / CONFIG2_GAMMA
+    scaled_gram_check("config 2 train", xs, xs, "se", 1.5)
+    scaled_gram_check("config 2 test x train", xts, xs, "se", 1.5)
+    return {**stats, "mu_err_vs_exact": mu_vs_exact,
+            "std_err_vs_exact": std_vs_exact, "exact_s": exact_s,
+            "mean_vs_f64": mean_err, "std_vs_f64": std_err,
+            "draw_mean_se": draw_mean, "draw_cov_err": cov_err,
+            "draw_cov_se": cov_se, "ladder_jitter_rel": jitter_rel,
+            "var_ratio_median": var_ratio, "m": F.m,
+            "launches": nonzero(counts), "exact_launches": nonzero(exact_counts)}
+
+
+def config3_data():
+    """run_all.py:135-138 (numpy seed 2): x ~ U(−1, 1)^(50000 × 2) and
+    y = sin 3x₀ + x₁, float32 numpy."""
+    rng = np.random.default_rng(2)
+    x = rng.uniform(-1, 1, (CONFIG3_N, 2)).astype(np.float32)
+    return x, (np.sin(3 * x[:, :1]) + x[:, 1:]).astype(np.float32)
+
+
+def config3_kernel(dev, dtype):
+    k = None
+    for fam, nu, gamma, col in CONFIG3_ATOMS:
+        name = "squared_exponential" if fam == "se" else "matern"
+        atom = KernelFunction(kernel_name=name, gamma=gamma, nu=nu, d=2,
+                              group=[col], device=dev, dtype=dtype)
+        k = atom if k is None else k + atom
+    return plain64_atoms(k) if dtype == torch.float64 else k
+
+
+def eig_counts(eigs):
+    """(eigenvalues above the cut, of those under 1e-6·λmax)."""
+    passed = eigs[eigs > EIG_CUT]
+    return int(passed.numel()), int((passed < 1e-6 * eigs.max()).sum())
+
+
+def config3_phase(dev):
+    """16.2: run_all.py config 3 as written (see CONFIG3_N's note)."""
+    x, y = (torch.tensor(a, device=dev) for a in config3_data())
+    head = x[:CONFIG3_HEAD]
+    nf = NystromFeatures(config3_kernel(dev, torch.float32), m=CONFIG3_M,
+                         approx="uniform", s=CONFIG3_S)
+
+    def run():
+        nf.fit_gp(x, y)
+        return nf.mean_std(head)
+
+    stats, _ = timed_reps(run)
+    state = nf.generator.get_state()
+    (mu, _sd), wall, counts = counted(run)
+    nf64 = NystromFeatures(config3_kernel(dev, torch.float64), m=CONFIG3_M,
+                           approx="uniform", s=CONFIG3_S)
+    nf64.generator.set_state(state)
+    nf64.fit_gp(x, y)
+    assert torch.equal(nf.C, nf64.C), "the float64 model drew other landmarks"
+    mu64 = nf64.mean_std(head)[0]
+    mean_err = float((mu.double() - mu64).abs().max() / mu64.abs().max())
+    yh = y[:CONFIG3_HEAD].double().reshape(-1, 1)
+    mae = float((mu.double() - yh).abs().mean())
+    mae64 = float((mu64 - yh).abs().mean())
+    e32, e64 = eig_counts(nf.eigs), eig_counts(nf64.eigs)
+    print(f"  16.2 config 3: NystromFeatures n = {CONFIG3_N}, m = {CONFIG3_M}"
+          f", fit + mean_std on {CONFIG3_HEAD}: median {stats['wall_s']!r} s,"
+          f" IQR {stats['wall_iqr_s']!r} s (warm-up {stats['warmup_s']!r} s;"
+          f" counted run {wall!r} s, launches {nonzero(counts)}); "
+          f"train_mae_head {mae!r} (float64 {mae64!r}, bar ±"
+          f"{CONFIG3_MAE_ATOL}); mean against the float64 model on the same "
+          f"landmarks {mean_err!r} of max|μ64| (bar {CONFIG3_MEAN_RTOL})")
+    print(f"    landmark eigenvalues above the {EIG_CUT} cut / of those under "
+          f"1e-6·λmax: f32 Gram {e32}, float64 Gram {e64}")
+    assert mean_err <= CONFIG3_MEAN_RTOL, mean_err
+    assert abs(mae - mae64) <= CONFIG3_MAE_ATOL, (mae, mae64)
+    assert counts["gram"] > 0, counts
+    C = nf.C
+    for fam, nu, gamma, col in CONFIG3_ATOMS:
+        xs = x[:, col:col + 1] / gamma
+        scaled_gram_check("config 3 cross", xs, xs[C], fam, nu)
+        scaled_gram_check("config 3 landmarks", xs[C], xs[C], fam, nu)
+        scaled_gram_check("config 3 serving", xs[:CONFIG3_HEAD], xs[C], fam,
+                          nu)
+    del nf, nf64
+    torch.cuda.empty_cache()
+    return {**stats, "train_mae_head": mae, "train_mae_head_f64": mae64,
+            "mean_vs_f64": mean_err, "eigs_f32": e32, "eigs_f64": e64,
+            "launches": nonzero(counts)}
+
+
+def pathwise_phase(dev):
+    """16.3: IterativeGP.sample_pathwise on a lazy GP (see PATHWISE_N's
+    note)."""
+    xn, yn, xtn = config2_data(PATHWISE_N, PATHWISE_T)
+    kernel = KernelFunction(kernel_name="squared_exponential",
+                            gamma=PATHWISE_GAMMA, d=2, device=dev)
+    gp = IterativeGP(kernel, s=PATHWISE_S, lazy=True,
+                     maxiter=PATHWISE_MAXITER)
+    _, fit_s, fit_counts = counted(lambda: gp.fit_gp(xn, yn))
+    emb = HermiteEmbedding(gamma=PATHWISE_GAMMA, m=512, d=2, device=dev)
+    xt = gp._tensor(xtn)
+    gen = torch.Generator(device=dev)
+
+    def draw():
+        gen.manual_seed(0)
+        return gp.sample_pathwise(xt, emb, size=PATHWISE_DRAWS, generator=gen)
+
+    paths, wall, counts = counted(draw)
+    # the correction the paths carry, from the same draws and the same CG
+    gen.manual_seed(0)
+    theta = torch.randn((emb.get_m(), PATHWISE_DRAWS), generator=gen,
+                        device=dev)
+    resid = gp.y - emb.embed(gp.x) @ theta
+    corr, its, _ = iterative._cg_columns(gp._matmat, resid, iterative._identity,
+                                         gp.tol, gp.maxiter, None)
+    again = emb.embed(xt) @ theta + kernel.cross(xt, gp.x) @ corr
+    same = float((again - paths).abs().max() / paths.abs().max())
+    x64, c64, r64 = gp.x.double(), corr.double(), resid.double()
+    r = r64 - PATHWISE_S ** 2 * c64
+    for r0 in range(0, PATHWISE_N, 4096):
+        r[r0:r0 + 4096] -= kernel_matrix("se", PATHWISE_GAMMA,
+                                         x64[r0:r0 + 4096], x64) @ c64
+    col_resid = torch.linalg.vector_norm(r, dim=0) / torch.linalg.vector_norm(
+        r64, dim=0)
+    worst = float(col_resid.max())
+    del r, r64, c64
+    mu64, var64, _ = reference_f64(gp.x, gp.y, xt, family="se",
+                                   gamma=PATHWISE_GAMMA, s=PATHWISE_S)
+    torch.cuda.empty_cache()
+    Pt, Px = emb.embed(xt).double(), emb.embed(gp.x[:4096]).double()
+    emb_err = float((Pt @ Px.T - kernel_matrix(
+        "se", PATHWISE_GAMMA, xt.double(), x64[:4096])).abs().max())
+    pd = paths.double()
+    se = torch.sqrt(var64.clamp_min(0.0)) / math.sqrt(PATHWISE_DRAWS)
+    excess = float(((pd.mean(dim=1) - mu64).abs()
+                    - (DRAW_SE * se + emb_err)).max())
+    mean_se = float(((pd.mean(dim=1) - mu64).abs() / se).max())
+    var_ratio = float((pd.var(dim=1) / var64).median())
+    print(f"  16.3 sample_pathwise, lazy IterativeGP n = {PATHWISE_N}, d = 2, "
+          f"SE({PATHWISE_GAMMA}), s = {PATHWISE_S}: fit {fit_s!r} s "
+          f"(fit_status {gp.fit_status}; launches {nonzero(fit_counts)}); "
+          f"{PATHWISE_DRAWS} paths at {PATHWISE_T} points: {wall!r} s "
+          f"(launches {nonzero(counts)}); CG iterations per path min "
+          f"{int(its.min())} "
+          f"max {int(its.max())}; the paths rebuilt from the same CG within "
+          f"{same!r}")
+    print(f"    float64 residual of each path's correction: max {worst!r} "
+          f"(bar {PATHWISE_RESIDUAL_MAX}); paths' mean against the dense "
+          f"float64 mean: max |x̄ − μ64|/(σ64/√{PATHWISE_DRAWS}) {mean_se!r},"
+          f" the embedding's kernel error {emb_err!r}, max excess over "
+          f"{DRAW_SE}·SE + that error {excess!r} (must be ≤ 0); median "
+          f"var(paths)/var64 {var_ratio!r}")
+    assert same <= 1e-5, same
+    assert worst <= PATHWISE_RESIDUAL_MAX, worst
+    assert excess <= 0.0, excess
+    assert counts["gram"] > 0 and counts["gram_matmat"] > 0, counts
+    assert fit_counts["gram_matvec"] > 0, fit_counts
+    xs, xts = gp.x / PATHWISE_GAMMA, xt / PATHWISE_GAMMA
+    scaled_gram_check("pathwise K(xtest, x)", xts, xs, "se", 1.5)
+    e, rel = matvec_error(gram_matmat_scaled, xs, xs, corr, "se", 1.5)
+    print(f"    gram_matmat {PATHWISE_N}x{PATHWISE_N} d=2 r={PATHWISE_DRAWS}: "
+          f"max abs err {e!r}, max err / sum|K||V| {rel!r} (bar "
+          f"{matvec_rtol(PATHWISE_N)!r}), repeatable")
+    assert rel <= matvec_rtol(PATHWISE_N), rel
+    e, rel = matvec_error(gram_matvec_scaled, xs, xs, gp.y[:, 0], "se", 1.5)
+    print(f"    gram_matvec {PATHWISE_N}x{PATHWISE_N} d=2: max abs err {e!r}, "
+          f"max err / sum|K||v| {rel!r} (bar {matvec_rtol(PATHWISE_N)!r}), "
+          "repeatable")
+    assert rel <= matvec_rtol(PATHWISE_N), rel
+    del gp, corr, resid, mu64, var64
+    torch.cuda.empty_cache()
+    return {"wall_s": wall, "fit_s": fit_s, "residual_max": worst,
+            "cg_iterations": [int(its.min()), int(its.max())],
+            "mean_se_max": mean_se, "embedding_kernel_err": emb_err,
+            "var_ratio_median": var_ratio, "launches": nonzero(counts),
+            "fit_launches": nonzero(fit_counts)}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
@@ -3889,6 +4221,19 @@ def main(argv=None) -> int:
         "15.8 logistic": phase15["volume_mean"]["logistic"]["launches"],
         "15.9": phase15["online_gp"]["launches"]}
 
+    print("== phase 16: the feature-GP and Nyström slice (embeddings, "
+          "KernelizedFeatures, NystromFeatures, IterativeGP.sample_pathwise)")
+    phase16 = {"config2": config2_phase(dev), "config3": config3_phase(dev),
+               "pathwise": pathwise_phase(dev)}
+    sub_counts16 = {
+        "16.1 exact GP": phase16["config2"]["exact_launches"],
+        "16.2": phase16["config3"]["launches"],
+        "16.3 fit": phase16["pathwise"]["fit_launches"],
+        "16.3 sample_pathwise": phase16["pathwise"]["launches"]}
+    walls |= {"config2_feature_gp": phase16["config2"]["wall_s"],
+              "config3_nystrom_50k": phase16["config3"]["wall_s"],
+              "pathwise_32k": phase16["pathwise"]["wall_s"]}
+
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": REPLACES[name][0],
          "replaces": REPLACES[name][1], "tier": launches[name][0],
@@ -3897,6 +4242,8 @@ def main(argv=None) -> int:
          "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
          "library_ms": library.get(name),
          "phase15_launches": {sub: c[name] for sub, c in sub_counts.items()
+                              if c.get(name)},
+         "phase16_launches": {sub: c[name] for sub, c in sub_counts16.items()
                               if c.get(name)}}
         for name in REPLACES
     ], "qform_df_dgemm_ms": qtimes[2], "gram_matmat_sgemm_16k_ms": sgemm_ms,
@@ -3942,7 +4289,7 @@ def main(argv=None) -> int:
                                 "launches": opt_counts},
         "exact_hyperfit": {"config1": fit_se, "config1_laplace": fit_laplace,
                            "ard_4096": fit_ard, "sample_256": sampled},
-        "phase15": phase15}
+        "phase15": phase15, "phase16": phase16}
     print(json.dumps(record))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -1,14 +1,16 @@
 """stpy_tpu_torch — the PyTorch / CUDA port of stpy_tpu for NVIDIA Hopper.
 
 Mirrors the layout of the JAX package `stpy_tpu` (config.py, kernels/, ops/,
-linalg.py, models/). Hand-written CUDA kernels live in csrc/ and are built
-on first use by _build.py; importing the package builds nothing.
+linalg.py, embeddings/, models/, parallel/). Hand-written CUDA kernels live
+in csrc/ and are built on first use by _build.py; importing the package
+builds nothing.
 """
 
 __version__ = "0.1.0"
 
 from stpy_tpu_torch.config import default_jitter
 from stpy_tpu_torch.kernels import KernelFunction
-from stpy_tpu_torch.models import GaussianProcess
+from stpy_tpu_torch.models import GaussianProcess, KernelizedFeatures
 
-__all__ = ["GaussianProcess", "KernelFunction", "default_jitter"]
+__all__ = ["GaussianProcess", "KernelFunction", "KernelizedFeatures",
+           "default_jitter"]

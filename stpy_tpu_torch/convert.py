@@ -1,5 +1,6 @@
 """Carry hyperparameters and fitted state (exact GP, iterative GP, online
-GP) from the JAX package to the port.
+GP, embeddings, feature GPs, Nyström features) from the JAX package to the
+port.
 
 Inputs are numpy arrays (or anything with ``__array__``, such as a JAX
 array); nothing here imports JAX.
@@ -91,3 +92,66 @@ def load_online_state(og_port, x_buf, y_buf, L, alpha, count):
         dst.copy_(src.reshape(dst.shape))
     og_port.count = int(count)
     return og_port
+
+
+def load_embedding_state(emb_port, W=None, weights=None, kappa=None, m=None,
+                         W1=None, W2=None, W_mid=None):
+    """Load an embedding's random or quadrature state into a port
+    embedding: the frequencies W (m/2, d), their weights, κ and m of a trig
+    embedding (`RFFEmbedding`, `QuadratureEmbedding` and its subclasses),
+    or W1, W2 (and `RandomNestedMap`'s W_mid) of a `RandomMap`. Arguments
+    left None keep the port's own value."""
+    def t(a):
+        return as_tensor(a, device=emb_port.device, dtype=emb_port.dtype)
+
+    for name, value in (("W", W), ("weights", weights), ("W1", W1),
+                        ("W2", W2), ("W_mid", W_mid)):
+        if value is not None:
+            setattr(emb_port, name, t(value))
+    if kappa is not None:
+        emb_port.kappa = float(kappa)
+    if m is not None:
+        emb_port.m = int(m)
+    return emb_port
+
+
+def load_feature_state(f_port, x, y, Q=None, V=None, invV=None, K=None,
+                       invK=None, invK_V=None, Qty=None):
+    """Load a fitted JAX `KernelizedFeatures`' state into a port one: the
+    data and either the primal state (Q, V, invV), the dual state (Q, K,
+    invK, invK_V), or a streamed fit's (V, invV and Qᵀy, with Q None), so
+    that `mean_std` and `sample` run on the JAX fit's own matrices."""
+    def t(a):
+        return None if a is None else as_tensor(a, device=f_port.device,
+                                                dtype=f_port.dtype)
+
+    f_port.x = t(x)
+    f_port.y = t(y).reshape(-1, 1)
+    f_port.n, f_port.d = f_port.x.shape
+    f_port.dual = invK is not None
+    f_port.Q, f_port.V, f_port.invV = t(Q), t(V), t(invV)
+    f_port.K, f_port.invK, f_port.invK_V = t(K), t(invK), t(invK_V)
+    f_port._Qty = None if Qty is None else t(Qty).reshape(-1, 1)
+    f_port.to_add = []
+    f_port.data = f_port.fitted = True
+    return f_port
+
+
+def load_nystrom_state(nf_port, x, y, C, xs, Wmat, L, theta):
+    """Load a fitted JAX `NystromFeatures`' landmark state (the landmark
+    indices C and points xs, the map Wmat, the Cholesky factor L of
+    ΦᵀΦ + s²I and θ) into a port one, so that `embed`, `mean_std` and
+    `sample_theta` run on the JAX fit's landmarks and factor."""
+    def t(a):
+        return as_tensor(a, device=nf_port.device, dtype=nf_port.dtype)
+
+    nf_port.x = t(x)
+    nf_port.y = t(y).reshape(-1, 1)
+    nf_port.N, nf_port.d = nf_port.x.shape
+    nf_port.C = torch.tensor(np.array(C), device=nf_port.device)
+    nf_port._xs, nf_port._Wmat = t(xs), t(Wmat)
+    ko, xs_, W_ = nf_port.kernel_object, nf_port._xs, nf_port._Wmat
+    nf_port._embed = lambda q: ko.cross(q, xs_) @ W_
+    nf_port._L, nf_port._theta = t(L), t(theta).reshape(-1, 1)
+    nf_port.fitted = True
+    return nf_port

@@ -13,8 +13,9 @@ returned flag, never raised.
 The `precision`, `precision_bwd`, `nb` and `leaf_inv` arguments exist for
 signature parity and have no effect: they pick the TPU's bf16-pass count and
 blocking, while the card computes in IEEE f32 / f64 (TF32 is off, see
-config.py). The rank-1 updates (stpy_tpu/linalg.py:395-446) are not ported
-yet.
+config.py). Of the rank-1 updates (stpy_tpu/linalg.py:395-446) only
+`woodbury_inv_update` is ported, with its caller models/feature_gp.py;
+`symsqrt` comes with embeddings/nystrom.py.
 """
 
 from __future__ import annotations
@@ -144,3 +145,23 @@ def cho_solve_blocked(L, b, nb: int = 512, precision=None, leaf_inv=None,
 
 def logdet_from_chol(L):
     return 2.0 * torch.sum(torch.log(torch.diagonal(L)))
+
+
+def woodbury_inv_update(Vinv, u):
+    """(V + u uᵀ)⁻¹ from V⁻¹ by Sherman–Morrison (the primal rank-1 update
+    of models/feature_gp.py)."""
+    Vu = Vinv @ u
+    denom = 1.0 + u @ Vu
+    return Vinv - torch.outer(Vu, Vu) / denom
+
+
+def symsqrt(A, inv: bool = False, eps: float = 1e-12):
+    """Symmetric (inverse) square root V·diag(w^±½)·Vᵀ of A through its
+    eigendecomposition, eigenvalues clipped at `eps`. The eigh runs in
+    float64 whatever A's dtype and the result is returned in A's dtype:
+    cuSOLVER's f32 eigh leaves V orthonormal only to ~1e-4 at a few hundred
+    (ROADMAP Queue 3), which the clipped inverse root would amplify."""
+    w, V = torch.linalg.eigh(A.to(torch.float64))
+    w = torch.clamp(w, min=eps)
+    s = 1.0 / torch.sqrt(w) if inv else torch.sqrt(w)
+    return ((V * s) @ V.T).to(A.dtype)

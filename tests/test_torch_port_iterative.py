@@ -437,13 +437,36 @@ def test_hutchinson_matches_jax_on_the_same_probes(gp_data, monkeypatch):
 
 
 def test_unported_paths_raise_naming_the_roadmap(gp_data):
-    x, y, xt = gp_data
     with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
         tit.IterativeGP(torch_kernel("se"), mesh=object())
-    gp = tit.IterativeGP(torch_kernel("se"), s=S, lazy=True)
-    gp.fit_gp(x[:40], y[:40])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        gp.sample_pathwise(xt, None)
+
+
+@pytest.mark.parametrize("lazy", [True, False])
+def test_sample_pathwise_on_fed_draws_matches_jax(gp_data, lazy,
+                                                  monkeypatch):
+    """Matheron draws with a CG correction per path and no preconditioner:
+    the same RFF embedding (numpy-seeded, identical in both packages) and
+    the same normals θ fed to both; each column runs its own recurrence
+    (the JAX package's vmap(cg_solve), the port's `_cg_columns`), so the
+    paths agree to the solver's rounding, 1e-8 relative at tol 1e-10."""
+    from stpy_tpu.embeddings import RFFEmbedding as JaxRFF
+    from stpy_tpu_torch.embeddings import RFFEmbedding as TorchRFF
+
+    x, y, xt = gp_data
+    jg, tg = gp_pair("se+matern32", lazy=lazy)
+    jg.fit_gp(jnp.asarray(x), jnp.asarray(y))
+    tg.fit_gp(x, y)
+    kw = dict(gamma=0.5, m=64, d=3, seed=4)
+    je, te = JaxRFF(**kw), TorchRFF(**kw, device="cpu", dtype=torch.float64)
+    theta = np.random.default_rng(6).standard_normal((64, 5))
+    monkeypatch.setattr(jax.random, "normal",
+                        lambda *a, **k: jnp.asarray(theta))
+    monkeypatch.setattr(torch, "randn",
+                        lambda *a, **k: torch.as_tensor(theta))
+    got = tg.sample_pathwise(xt, te, size=5)
+    want = jg.sample_pathwise(jnp.asarray(xt), je, size=5)
+    assert got.shape == (150, 5)
+    assert rel_err(got.numpy(), want) <= 1e-8
 
 
 def df_variance_case(cls, **kw):
