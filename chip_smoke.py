@@ -51,7 +51,14 @@ mean_std, 64 draws) and config 3 (NystromFeatures at n = 50000 on the
 additive Matérn + SE kernel) against the port's float64 models on the same
 embedding and landmarks, and IterativeGP.sample_pathwise on a lazy GP at
 n = 32768 against its float64 residual and a dense float64 posterior, with
-gram, gram_matmat and gram_matvec held at their shapes there.
+gram, gram_matmat and gram_matvec held at their shapes there; then (phase
+17) the Poisson point-process slice: benchmarks/run_all.py config 4
+(PoissonRateEstimator on a triangle basis over 16 leaf sets, data drawn by
+the port's PoissonPointProcess; fit_gp and ucb_lcb_actions) and the same
+model at 1024 leaf sets and 1024 basis functions, against the port's
+float64 models on the same rounds and rate, and config 5 (the exact GP's
+64-restart bandwidth fit) against the port's float64 fit, with gram held
+at each shape it launched there.
 Phase 2c
 holds both matrix-free kernels in their derivative
 shapes ("dk_sq", "dk") too, and gram_matvec's backward against float64
@@ -76,6 +83,8 @@ script exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import functools
+import inspect
 import json
 import math
 import re
@@ -97,7 +106,12 @@ from stpy_tpu_torch.ops.chol_leaf import (
 )
 from stpy_tpu_torch.ops.gemv_df import gemv_df, gemv_df_plain
 from stpy_tpu_torch.kernels.df_plan import df_gram_from_desc
-from stpy_tpu_torch.embeddings import HermiteEmbedding, NystromFeatures
+from torch.utils._python_dispatch import TorchDispatchMode
+
+from stpy_tpu_torch.domains import HierarchicalBorelSets
+from stpy_tpu_torch.embeddings import (
+    HermiteEmbedding, NystromFeatures, TriangleEmbedding,
+)
 from stpy_tpu_torch.embeddings.nystrom import EIG_CUT
 from stpy_tpu_torch.models import KernelizedFeatures, OnlineGP, exact_gp
 from stpy_tpu_torch.ops.gram import (
@@ -130,6 +144,12 @@ from stpy_tpu_torch.parallel.lazy_kernel import (
     atom_params, fast_atoms, make_sum_matmat,
 )
 from stpy_tpu_torch.parallel.slq import slq_logdet
+from stpy_tpu_torch.point_processes import (
+    PoissonPointProcess, PoissonRateEstimator,
+)
+from stpy_tpu_torch.point_processes import (
+    poisson_rate_estimator as pre_module,
+)
 from stpy_tpu_torch.probes import exp_r3_df_entry
 
 N = NTEST = 16384
@@ -572,6 +592,50 @@ CONFIG3_MEAN_RTOL, CONFIG3_MAE_ATOL = 4e-4, 1e-3
 PATHWISE_N, PATHWISE_T, PATHWISE_DRAWS = 32768, 1024, 64
 PATHWISE_GAMMA, PATHWISE_S, PATHWISE_MAXITER = 0.5, 0.1, 2000
 PATHWISE_RESIDUAL_MAX = 1e-4
+
+# Phase 17: the Poisson point-process slice (domains, the positive bases,
+# PoissonPointProcess, PoissonRateEstimator with its ellipsoid bounds) and
+# run_all.py config 5. Its float64 references are the port's own models in
+# float64 on the card, on the same rounds, their kernel on the plain Gram
+# (`plain64_kernel`). 17.1: run_all.py config 4 as written (:162-215):
+# HierarchicalBorelSets(2, [−1, 1]², levels=3) (16 leaf sets), SE
+# γ = POISSON_GAMMA, PoissonRateEstimator(m = 8: 64 triangle functions,
+# B = 4, s = 1e-3, map_max_iter = 1000), λ(x) = 2.5·exp(−2‖x‖²) + 0.3,
+# every leaf sensed for dt = 20, its points drawn by the port's process on
+# the leaf's 16-point grid from a generator on the card seeded 0. fit_gp
+# timed warm (FEATURE_REPS); the fitted total within POISSON_TRUE_RTOL of
+# the process's true total (run_all.py's gate) and within
+# POISSON_TOTAL_RTOL of the float64 model's (the f32-to-f64 bar of
+# tests/test_point_processes.py:482-541; the CPU's f32 gap: 1.5e-4,
+# tools/poisson_f32_gap.py, which prints every CPU gap of this note).
+# 17.2: ucb_lcb_actions over 17.1's 16 leaf sets: lcb ≤ map ≤ ucb, every
+# bound within POISSON_BOUND_RTOL of the float64 model's on the same rate
+# (the CPU's f32 gap: 6.6e-6), each error over the larger of |the float64
+# bound| and the set's float64 map (an lcb on the box floor is 0 up to
+# rounding: at 17.3's size on the CPU the plain relative error of an lcb
+# reaches 8e7, the scaled one 2.0e-5); the scalar route of `ucb` and
+# `lcb` on the set of largest ucb against its batched row. 17.3: a 2-D intensity at a size a
+# user maps: levels 6 (1024 leaf sets), m = 32 (1024 basis functions),
+# dt = 200 per leaf (about 950 points), the same bars, the bounds over the
+# 64 sets of level 4; the Γ^½ build alone and the peak memory. Its SE
+# bandwidth keeps config 4's ratio to the grid step (0.4 at a step of
+# 0.314, 1.27 steps; USER_GAMMA at a step of 0.071, 1.41 steps): with
+# γ = 0.4 at 16² nodes the float64 MAP total is 37 % of the truth after
+# 1000 L-BFGS iterations and 49 % after 5000 (the CPU). The basis grid's
+# Gram is the double-float one (`gram_df`), see embeddings/positive.py.
+# 17.4:
+# run_all.py config 5 as written (:218-250): GaussianProcess(γ = 1,
+# s = 0.05) on n = 256 points of d = 1 (numpy seed 4),
+# optimize_params(bandwidth, 64 restarts, maxiter 40), the cold fit and
+# FEATURE_REPS warm ones timed; γ within FIT_GAMMA_RTOL of the port's
+# float64 fit on the CPU (config 1's bar).
+POISSON_GAMMA, USER_GAMMA = 0.4, 0.1
+POISSON_EST = dict(d=2, B=4.0, s=1e-3, map_max_iter=1000)
+CONFIG4_LEVELS, CONFIG4_M, CONFIG4_DT = 3, 8, 20.0
+USER_LEVELS, USER_M, USER_DT, USER_ACTION_LEVEL = 6, 32, 200.0, 4
+POISSON_TRUE_RTOL, POISSON_TOTAL_RTOL, POISSON_BOUND_RTOL = 0.10, 5e-3, 1e-3
+CONFIG5_N, CONFIG5_GP = 256, dict(gamma=1.0, s=0.05, d=1)
+CONFIG5_FIT = dict(type="bandwidth", restarts=64, maxiter=40)
 
 REPLACES = {
     "gram": ("stpy_tpu_torch/csrc/gram.cu", "stpy_tpu/ops/pallas_gram.py:63"),
@@ -3759,6 +3823,353 @@ def pathwise_phase(dev):
             "fit_launches": nonzero(fit_counts)}
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the Poisson point-process slice, and run_all.py config 5
+# ---------------------------------------------------------------------------
+
+def poisson_rate(x, dt=1.0):
+    """benchmarks/run_all.py:176-179: λ(x) = 2.5·exp(−2‖x‖²) + 0.3."""
+    return (2.5 * torch.exp(-torch.sum(x**2, dim=1, keepdim=True) * 2)
+            + 0.3) * dt
+
+
+def poisson_model(dev, dtype, levels, m, gamma):
+    """(hierarchy, process, estimator) of config 4's model with `levels`,
+    `m` and SE(γ); in float64 the kernel evaluates its plain version
+    (`plain64_kernel`), so the only hand-kernel launches are the f32
+    model's."""
+    h = HierarchicalBorelSets(2, [[-1.0, 1.0], [-1.0, 1.0]], levels=levels,
+                              device=dev, dtype=dtype)
+    k = (plain64_kernel(dev, "squared_exponential", gamma, 2)
+         if dtype == torch.float64 else
+         KernelFunction(kernel_name="squared_exponential", gamma=gamma, d=2,
+                        device=dev))
+    p = PoissonPointProcess(d=2, B=3.0, rate=poisson_rate)
+    return h, p, PoissonRateEstimator(p, h, m=m, kernel_object=k,
+                                      device=dev, dtype=dtype, **POISSON_EST)
+
+
+def poisson_data(p, leaves, dt, seed):
+    """Every leaf sensed for dt, its points drawn by the port's process on
+    S's 16-point grid (run_all.py:194-198) from a generator on the card
+    seeded `seed`; returns the rounds."""
+    g = torch.Generator(device=leaves[0].device).manual_seed(seed)
+    return [(S, p.sample_discretized(g, S, dt, n=16), dt) for S in leaves]
+
+
+class DeviceOps(TorchDispatchMode):
+    """Counts the aten operations on CUDA tensors that are not views (each
+    launches one kernel or more on the card, or copies to the host), and
+    the host reads among them."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops = self.reads = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if not func.is_view and any(
+                isinstance(a, torch.Tensor) and a.is_cuda
+                for a in torch.utils._pytree.tree_leaves((args, kwargs))):
+            self.ops += 1
+            self.reads += func in (torch.ops.aten._local_scalar_dense.default,
+                                   torch.ops.aten.equal.default)
+        return out
+
+
+def device_ops(fn):
+    """(fn()'s result, its device operations, its host reads)."""
+    with DeviceOps() as c:
+        out = fn()
+    return out, c.ops, c.reads
+
+
+def lbfgs_iterations(fn):
+    """(fn()'s result, the iterations of each MAP L-BFGS it ran), the
+    estimator module's `minimize_lbfgs` wrapped for the call."""
+    orig, its = pre_module.minimize_lbfgs, []
+
+    def wrapped(*args, **kwargs):
+        res = orig(*args, **kwargs)
+        its.append(res.iterations)
+        return res
+
+    pre_module.minimize_lbfgs = wrapped
+    try:
+        return fn(), its
+    finally:
+        pre_module.minimize_lbfgs = orig
+
+
+def grid_gram_check(label, est, gamma):
+    """gram_df at the basis grid's shape against its plain version, and
+    its time there: (max abs error, ms)."""
+    t = est.packing.grid_nodes64()
+    e = gram_df_check(label, t, t, "se", 1.0, gamma)[0]
+    ts = scale_coords(t, gamma)
+    ms = cuda_ms(lambda: gram_df_scaled(ts, ts, 1.0, "se", 1.0))
+    print(f"    gram_df {label} {t.shape[0]}x{t.shape[0]}: {ms!r} ms")
+    return e, ms
+
+
+def poisson_fit_phase(dev, label, levels, m, gamma, dt, fit_reps):
+    """Build the f32 model (its basis grid's double-float Gram is its one
+    `gram_df` launch), load its rounds and fit, counted; then the warm
+    refit from the cold fit's rate timed `fit_reps` times (`timed_reps`),
+    or once where 0, and once more with its device operations counted;
+    the float64 model on the same rounds; the totals against each other
+    and the truth. Returns ((h, est, h64, est64), record)."""
+    (h, p, est), build_s, build_counts = counted(
+        lambda: poisson_model(dev, torch.float32, levels, m, gamma))
+    leaves = h.get_sets_level(levels)
+    data = poisson_data(p, leaves, dt, seed=0)
+    n_pts = sum(0 if o is None else o.shape[0] for _, o, _ in data)
+    _, cold_s, fit_counts = counted(lambda: (est.load_data(data),
+                                             est.fit_gp()))
+    counts = {k: build_counts[k] + fit_counts[k] for k in build_counts}
+    rate_cold = est.rate.clone()
+
+    def warm_fit():
+        # every timed and counted refit is the same work: the warm refit
+        # from the cold fit's rate
+        est.rate = rate_cold.clone()
+        return est.fit_gp()
+
+    if fit_reps:
+        stats, _ = timed_reps(warm_fit, fit_reps)
+    else:
+        _, warm_s, _ = counted(warm_fit)
+        stats = {"wall_s": warm_s}
+    (_, fit_ops, fit_reads), fit_its = lbfgs_iterations(
+        lambda: device_ops(warm_fit))
+    h64, _, est64 = poisson_model(dev, torch.float64, levels, m, gamma)
+    est64.load_data([(S, None if o is None else o.double(), dt)
+                     for S, (_, o, _) in zip(h64.get_sets_level(levels), data)])
+    _, fit64_s, _ = counted(est64.fit_gp)
+    total = float(est.mean_set(h.top_node)[0])
+    total64 = float(est64.mean_set(h64.top_node)[0])
+    true = p.rate_volume(h.top_node, dt=1.0)
+    gap64, gap_true = abs(total - total64) / total64, abs(total - true) / true
+    print(f"  {label}: {len(leaves)} leaf sets, {est.get_m()} basis "
+          f"functions, SE γ = {gamma}, dt = {dt} per leaf, {n_pts} points; "
+          f"model build (Γ^½ "
+          f"and the {len(leaves)} basis integrals) {build_s!r} s; load + "
+          f"cold fit {cold_s!r} s (launches {nonzero(counts)}); warm fit_gp "
+          f"median {stats['wall_s']!r} s"
+          + (f", IQR {stats['wall_iqr_s']!r} s over {fit_reps}" if fit_reps
+             else "") + f"; one warm fit: {fit_its} L-BFGS iterations, "
+          f"{fit_ops} device operations, {fit_reads} host reads; the float64 "
+          f"model's fit {fit64_s!r} s")
+    print(f"    fitted total {total!r} against the true {true!r} (rel "
+          f"{gap_true!r}, run_all.py's bar {POISSON_TRUE_RTOL}) and the "
+          f"float64 model's {total64!r} (rel {gap64!r}, bar "
+          f"{POISSON_TOTAL_RTOL})")
+    assert counts["gram_df"] > 0, counts
+    assert bool(torch.isfinite(est.rate).all()) and est.rate.shape == (
+        est.get_m(),)
+    assert gap_true <= POISSON_TRUE_RTOL, (total, true)
+    assert gap64 <= POISSON_TOTAL_RTOL, (total, total64)
+    e, gram_ms = grid_gram_check(f"{label} basis grid", est, gamma)
+    return (h, est, h64, est64), {
+        **stats, "build_s": build_s, "cold_fit_s": cold_s,
+        "fit_device_ops": fit_ops, "fit_host_reads": fit_reads,
+        "fit_lbfgs_iterations": fit_its,
+        "float64_fit_s": fit64_s, "points": n_pts, "leaf_sets": len(leaves),
+        "basis_functions": est.get_m(), "fitted_total": total,
+        "true_total": true, "float64_total": total64,
+        "total_vs_f64": gap64, "total_vs_true": gap_true,
+        "gram_df_max_err": e, "gram_df_ms": gram_ms,
+        "launches": nonzero(counts)}
+
+
+def slice_ops(est, sets):
+    """(device operations, host reads) of one `ucb_lcb_actions` call on
+    `sets`, counted (`device_ops`) on calls whose ascent is cut to 1 and
+    2 steps: every loop of the solve has a fixed length, so each count is
+    n(1) + (steps − 1)·(n(2) − n(1)) at the default 150 steps."""
+    orig = pre_module.maximize_on_elliptical_slice
+    steps = inspect.signature(orig).parameters["max_iter"].default
+    n = {}
+    try:
+        for k in (1, 2):
+            pre_module.maximize_on_elliptical_slice = functools.partial(
+                orig, max_iter=k)
+            n[k] = device_ops(lambda: est.ucb_lcb_actions(sets))[1:]
+    finally:
+        pre_module.maximize_on_elliptical_slice = orig
+    return tuple(n[1][i] + (steps - 1) * (n[2][i] - n[1][i]) for i in (0, 1))
+
+
+def poisson_bounds_phase(label, models, level, scalar):
+    """`ucb_lcb_actions` over the sets of `level` on the f32 fit, timed,
+    its device operations counted (`slice_ops`), and on the float64 model
+    given the same rate; lcb ≤ map ≤ ucb, and each bound within
+    POISSON_BOUND_RTOL of float64's. With `scalar`, the scalar route of
+    `ucb` and `lcb` on the set of largest ucb too, against its batched
+    row."""
+    h, est, h64, est64 = models
+    sets, sets64 = h.get_sets_level(level), h64.get_sets_level(level)
+    (m32, u32, l32), wall, counts = counted(lambda: est.ucb_lcb_actions(sets))
+    ops, reads = slice_ops(est, sets)
+    rate64 = est64.rate
+    est64.rate = est.rate.double()
+    (m64, u64, l64), wall64, _ = counted(lambda: est64.ucb_lcb_actions(sets64))
+    est64.rate = rate64
+    # each bound's error over the larger of |its float64 value| and the
+    # set's float64 map: an lcb on the box floor is 0 up to rounding
+    scale = [torch.maximum(b.abs(), m64.abs()) for b in (m64, u64, l64)]
+    errs = [float(((a.double() - b).abs() / sc).max())
+            for (a, b), sc in zip(((m32, m64), (u32, u64), (l32, l64)), scale)]
+    plain = [float(((a.double() - b).abs() / b.abs()).max())
+             for a, b in ((m32, m64), (u32, u64), (l32, l64))]
+    order_ok = bool((l32 <= m32).all() and (m32 <= u32).all())
+    out = {"wall_s": wall, "float64_wall_s": wall64, "device_ops": ops,
+           "host_reads": reads, "map_err": errs[0], "ucb_err": errs[1],
+           "lcb_err": errs[2], "plain_rel_err": plain,
+           "lcb64_min": float(l64.min()),
+           "actions": len(sets), "above_map": int((u32 > m32).sum())}
+    print(f"  {label}: ucb_lcb_actions over the {len(sets)} sets of level "
+          f"{level} ({2 * len(sets)} ellipsoid-slice solves in one batch, "
+          f"{out['above_map']} ucb above their map): {wall!r} s, {ops} "
+          f"device operations and {reads} host reads; the float64 model on "
+          f"the same rate {wall64!r} s; max err over max(|bound64|, map64): "
+          f"map {errs[0]!r}, ucb {errs[1]!r}, lcb {errs[2]!r} (bar "
+          f"{POISSON_BOUND_RTOL}; plain rel {plain}, smallest float64 lcb "
+          f"{out['lcb64_min']!r}); lcb ≤ map ≤ ucb: {order_ok}")
+    assert order_ok, (l32, m32, u32)
+    assert max(errs) <= POISSON_BOUND_RTOL, errs
+    assert not any(counts.values()), counts
+    if scalar:
+        # the scalar route `ucb` and `lcb` each take: one action's
+        # (map, ucb, lcb) by two solves, ±φ
+        top = int(torch.argmax(u32))
+        est.approx_fit = False
+        (_, ucb, lcb), s_wall, _ = counted(lambda: est.mean_var_laplace_set(
+            sets[top], 1.0, est.beta(0)))
+        sc = max(abs(float(u32[top])), abs(float(m32[top])))
+        s_errs = [abs(ucb - float(u32[top])) / sc,
+                  abs(lcb - float(l32[top])) / max(abs(float(l32[top])),
+                                                   abs(float(m32[top])))]
+        print(f"    set {top} (largest ucb): the scalar route's ucb {ucb!r} "
+              f"and lcb {lcb!r} ({s_wall!r} s, two solves) against the "
+              f"batched row: rel {s_errs} (bar {POISSON_BOUND_RTOL})")
+        assert max(s_errs) <= POISSON_BOUND_RTOL, s_errs
+        out |= {"scalar_wall_s": s_wall, "scalar_rel_err": s_errs}
+    return out
+
+
+def config4_phase(dev):
+    """17.1 and 17.2: run_all.py config 4 as written (see POISSON_GAMMA's
+    note)."""
+    models, fit = poisson_fit_phase(dev, "17.1 config 4", CONFIG4_LEVELS,
+                                    CONFIG4_M, POISSON_GAMMA, CONFIG4_DT,
+                                    FEATURE_REPS)
+    bounds = poisson_bounds_phase("17.2 config 4 bounds", models,
+                                  CONFIG4_LEVELS, scalar=True)
+    sampled = poisson_sample_check(models[1])
+    del models
+    torch.cuda.empty_cache()
+    return {"fit": fit, "bounds": bounds, "sample": sampled}
+
+
+def poisson_sample_check(est):
+    """One posterior draw (`sample`, its default proximal Langevin route,
+    1000 steps) on the f32 fit: finite, and its w = Γ^{1/2}θ in the box."""
+    (theta), wall, counts = counted(est.sample)
+    l, _, u = est.get_constraints()
+    w = est.cov() @ theta
+    slack = 1e-3 * float(u.max())
+    ok = bool(torch.isfinite(theta).all() and (w >= l - slack).all()
+              and (w <= u + slack).all())
+    print(f"    sample ({est.sampling}, 1000 steps): {wall!r} s; θ finite and "
+          f"w = Γ^½θ in [l, u] within {slack}: {ok}")
+    assert ok and not any(counts.values()), counts
+    return {"wall_s": wall, "sampling": est.sampling}
+
+
+def poisson_user_phase(dev):
+    """17.3: the user-sized map (see USER_LEVELS' note)."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    emb = TriangleEmbedding(2, USER_M, kernel_object=KernelFunction(
+        kernel_name="squared_exponential", gamma=USER_GAMMA, d=2,
+        device=dev), B=POISSON_EST["B"], offset=0.1, s=math.sqrt(1e-7),
+        device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    emb.cov()
+    torch.cuda.synchronize()
+    cov_s = time.perf_counter() - t0
+    del emb
+    models, fit = poisson_fit_phase(dev, "17.3 user size", USER_LEVELS,
+                                    USER_M, USER_GAMMA, USER_DT, 0)
+    h, est = models[:2]
+    (mean_top,), mean_s, _ = counted(lambda: est.mean_set(h.top_node))
+    bounds = poisson_bounds_phase("17.3 user-size bounds", models,
+                                  USER_ACTION_LEVEL, scalar=False)
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    print(f"  17.3: Γ^½ build alone (float64 pinv and symsqrt of "
+          f"{USER_M**2}², on the card) {cov_s!r} s; mean_set on the top set "
+          f"{float(mean_top)!r} in {mean_s!r} s; peak memory above the start "
+          f"{peak!r} GiB")
+    del models
+    torch.cuda.empty_cache()
+    return {"fit": fit, "bounds": bounds, "cov_build_s": cov_s,
+            "peak_gib": peak}
+
+
+def config5_data():
+    """run_all.py:222-228 (numpy seed 4): x ~ U(−1, 1)^(256 × 1), y =
+    log(2.5·exp(−4x²) + 0.3) + 0.05ε."""
+    rng = np.random.default_rng(4)
+    x = rng.uniform(-1, 1, (CONFIG5_N, 1))
+    return x, np.log(2.5 * np.exp(-4 * x**2) + 0.3) + 0.05 * \
+        rng.standard_normal((CONFIG5_N, 1))
+
+
+def config5_phase(dev):
+    """17.4: run_all.py config 5 as written (see CONFIG5_N's note)."""
+    x, y = config5_data()
+    gp = GaussianProcess(device=dev, **CONFIG5_GP)
+    gp.fit_gp(x, y)
+    _, cold_s, counts = counted(lambda: gp.optimize_params(**CONFIG5_FIT))
+    gamma_cold = float(gp.kernel_object.params_dict["0"]["gamma"])
+    stats, _ = timed_reps(lambda: gp.optimize_params(**CONFIG5_FIT))
+    gamma = float(gp.kernel_object.params_dict["0"]["gamma"])
+    hm = gp.hyperopt_metrics
+    t0 = time.perf_counter()
+    ref = float64_gp(x, y, **CONFIG5_GP)
+    ref.optimize_params(**CONFIG5_FIT)
+    ref_s = time.perf_counter() - t0
+    gamma64 = float(ref.kernel_object.params_dict["0"]["gamma"])
+    rel_cold, rel = (abs(g - gamma64) / gamma64 for g in (gamma_cold, gamma))
+    its = np.asarray(hm["iterations"])
+    conv = int(np.asarray(hm["converged"]).sum())
+    print(f"  17.4 config 5: optimize_params(bandwidth, 64 restarts, maxiter "
+          f"40) on n = {CONFIG5_N}: the first (cold) fit {cold_s!r} s "
+          f"(launches {nonzero(counts)}), then median {stats['wall_s']!r} s, "
+          f"IQR {stats['wall_iqr_s']!r} s over {FEATURE_REPS}; route "
+          f"{hm['route']}, chunk {hm.get('chunk')}; γ {gamma!r} (cold fit "
+          f"{gamma_cold!r}) against the float64 CPU fit's {gamma64!r} "
+          f"({ref_s!r} s): rel {rel!r} / {rel_cold!r} (bar "
+          f"{FIT_GAMMA_RTOL}); restarts' iterations mean {its.mean()!r}, max "
+          f"{int(its.max())}, converged {conv} of {its.size}")
+    assert counts["gram"] > 0, counts
+    assert max(rel, rel_cold) <= FIT_GAMMA_RTOL, (gamma, gamma_cold, gamma64)
+    xs = gp.x / gamma
+    e = scaled_gram_check("config 5 fit", xs, xs, "se", 1.5)
+    gram_ms = cuda_ms(lambda: gram_scaled(xs, xs, 1.0, "se", 1.5))
+    print(f"    gram config 5 fit {CONFIG5_N}x{CONFIG5_N} d=1: {gram_ms!r} ms")
+    return {**stats, "cold_fit_s": cold_s, "gamma": gamma,
+            "gamma_cold": gamma_cold, "gamma64": gamma64,
+            "gamma_rel_err": rel, "gamma_cold_rel_err": rel_cold,
+            "iterations_mean": float(its.mean()),
+            "iterations_max": int(its.max()), "converged": conv,
+            "route": hm["route"], "reference_s": ref_s, "gram_max_err": e,
+            "gram_ms": gram_ms, "launches": nonzero(counts)}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
@@ -4234,6 +4645,20 @@ def main(argv=None) -> int:
               "config3_nystrom_50k": phase16["config3"]["wall_s"],
               "pathwise_32k": phase16["pathwise"]["wall_s"]}
 
+    print("== phase 17: the Poisson point-process slice (domains, the "
+          "positive bases, PoissonRateEstimator and its ellipsoid bounds) "
+          "and run_all.py config 5")
+    phase17 = {"config4": config4_phase(dev), "user": poisson_user_phase(dev),
+               "config5": config5_phase(dev)}
+    sub_counts17 = {"17.1": phase17["config4"]["fit"]["launches"],
+                    "17.3": phase17["user"]["fit"]["launches"],
+                    "17.4": phase17["config5"]["launches"]}
+    walls |= {"config4_fit": phase17["config4"]["fit"]["wall_s"],
+              "config4_bounds": phase17["config4"]["bounds"]["wall_s"],
+              "poisson_1024_fit": phase17["user"]["fit"]["wall_s"],
+              "poisson_1024_bounds": phase17["user"]["bounds"]["wall_s"],
+              "config5_hyperfit": phase17["config5"]["wall_s"]}
+
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": REPLACES[name][0],
          "replaces": REPLACES[name][1], "tier": launches[name][0],
@@ -4244,6 +4669,8 @@ def main(argv=None) -> int:
          "phase15_launches": {sub: c[name] for sub, c in sub_counts.items()
                               if c.get(name)},
          "phase16_launches": {sub: c[name] for sub, c in sub_counts16.items()
+                              if c.get(name)},
+         "phase17_launches": {sub: c[name] for sub, c in sub_counts17.items()
                               if c.get(name)}}
         for name in REPLACES
     ], "qform_df_dgemm_ms": qtimes[2], "gram_matmat_sgemm_16k_ms": sgemm_ms,
@@ -4289,7 +4716,7 @@ def main(argv=None) -> int:
                                 "launches": opt_counts},
         "exact_hyperfit": {"config1": fit_se, "config1_laplace": fit_laplace,
                            "ard_4096": fit_ard, "sample_256": sampled},
-        "phase15": phase15, "phase16": phase16}
+        "phase15": phase15, "phase16": phase16, "phase17": phase17}
     print(json.dumps(record))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

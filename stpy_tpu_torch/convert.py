@@ -1,6 +1,6 @@
 """Carry hyperparameters and fitted state (exact GP, iterative GP, online
-GP, embeddings, feature GPs, Nyström features) from the JAX package to the
-port.
+GP, embeddings, feature GPs, Nyström features, positive bases, Poisson rate
+estimators) from the JAX package to the port.
 
 Inputs are numpy arrays (or anything with ``__array__``, such as a JAX
 array); nothing here imports JAX.
@@ -155,3 +155,55 @@ def load_nystrom_state(nf_port, x, y, C, xs, Wmat, L, theta):
     nf_port._L, nf_port._theta = t(L), t(theta).reshape(-1, 1)
     nf_port.fitted = True
     return nf_port
+
+
+def load_positive_embedding_state(emb_port, Gamma_half, invGamma_half,
+                                  grid=None, basis=None):
+    """Load a JAX positive basis's Γ^{1/2} and its pseudo-inverse into a port
+    one (its `cov()` then returns them) and, for a
+    `PositiveNystromEmbeddingBump`, its 1-D basis: the values `basis`
+    (N, m) on the ascending points `grid` (N,), interpolated linearly as
+    the JAX package's "positive_svd" map does. The cached integrals are
+    dropped."""
+    from stpy_tpu_torch.embeddings.nystrom import _interp_columns
+
+    def t(a):
+        return as_tensor(a, device=emb_port.device, dtype=emb_port.dtype)
+
+    emb_port.Gamma_half, emb_port.invGamma_half = t(Gamma_half), t(invGamma_half)
+    emb_port.precomp = True
+    emb_port.procomp_integrals = {}
+    if grid is not None:
+        xg, bg = t(grid).reshape(-1), t(basis)
+        emb_port.GP._embed = lambda q: _interp_columns(
+            t(q).reshape(-1, 1)[:, 0].contiguous(), xg, bg)
+    return emb_port
+
+
+def load_rate_estimator_state(est_port, rate=None, W=None, phis=None,
+                              counts=None, observations=None,
+                              obs_multiplicities=None, loglikelihood=None):
+    """Load a JAX `PoissonRateEstimator`'s fitted state into a port one
+    loaded with the same rounds: the rate θ, the covariance W, the running
+    log-likelihood and the data arrays (phis, counts, the embedded
+    observations and their multiplicities; the JAX package's rows past
+    the port's own counts, its power-of-two padding, are dropped), so that
+    the covariances, bounds and conformal sets run on the JAX fit. Arguments
+    left None keep the port's own value."""
+    def t(a):
+        return as_tensor(a, device=est_port.device, dtype=est_port.dtype)
+
+    if rate is not None:
+        est_port.rate = t(rate).reshape(-1)
+    if W is not None:
+        est_port.W = t(W)
+    for name, value in (("phis", phis), ("counts", counts),
+                        ("observations", observations),
+                        ("obs_multiplicities", obs_multiplicities)):
+        if value is not None:
+            own = getattr(est_port, name)
+            rows = own.shape[0] if own is not None else np.asarray(value).shape[0]
+            setattr(est_port, name, t(np.asarray(value)[:rows]))
+    if loglikelihood is not None:
+        est_port.loglikelihood = float(loglikelihood)
+    return est_port

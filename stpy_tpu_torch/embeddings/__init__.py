@@ -1,10 +1,13 @@
 """Finite feature maps Φ with k(x, y) ≈ Φ(x)ᵀΦ(y) (port of
-stpy_tpu/embeddings). The positive and Bernstein bases and Nyström's
-positive subclasses (`PositiveNystromEmbeddingBump`,
-`OptimalPositiveBasis`) come with the point-process stack, ROADMAP Queue 1
-item 9."""
+stpy_tpu/embeddings), with the positive and Bernstein bases of the
+point-process stack."""
 
 from stpy_tpu_torch.embeddings.base import Embedding, box_trig_integrals
+from stpy_tpu_torch.embeddings.bernstein import (
+    BernsteinEmbedding,
+    BernsteinSplinesEmbedding,
+    BernsteinSplinesOverlapping,
+)
 from stpy_tpu_torch.embeddings.combinators import (
     AdditiveEmbeddings,
     ConcatEmbedding,
@@ -26,6 +29,8 @@ from stpy_tpu_torch.embeddings.fourier import (
 )
 from stpy_tpu_torch.embeddings.nystrom import (
     NystromFeatures,
+    OptimalPositiveBasis,
+    PositiveNystromEmbeddingBump,
     nmf_multiplicative,
 )
 from stpy_tpu_torch.embeddings.polynomial import (
@@ -35,6 +40,14 @@ from stpy_tpu_torch.embeddings.polynomial import (
     PackingEmbedding,
     PolynomialEmbedding,
 )
+from stpy_tpu_torch.embeddings.positive import (
+    BumpsEmbedding,
+    CustomHaarBumps,
+    FaberSchauderEmbedding,
+    KuhnExponentialEmbedding,
+    PositiveEmbedding,
+    TriangleEmbedding,
+)
 from stpy_tpu_torch.embeddings.random_nn import (
     RandomMap,
     RandomNestedMap,
@@ -42,13 +55,17 @@ from stpy_tpu_torch.embeddings.random_nn import (
 )
 
 __all__ = [
-    "AdditiveEmbeddings", "ChebyschevEmbedding", "ClenshawCurtisEmbedding",
-    "ConcatEmbedding", "CustomEmbedding", "Embedding", "HermiteEmbedding",
-    "KLEmbedding", "LatticeEmbedding", "MaskedEmbedding", "MaternEmbedding",
-    "NystromFeatures", "OnehotEmbedding", "OverCompleteHermiteEmbedding",
-    "PackingEmbedding", "PolynomialEmbedding", "ProjectiveEmbeddings",
-    "QuadPeriodicEmbedding", "QuadratureEmbedding", "RFFEmbedding",
-    "RandomMap", "RandomNestedMap", "RandomOrthogonalMap",
-    "TrapezoidalEmbedding", "WeightedEmbedding", "box_trig_integrals",
-    "nmf_multiplicative",
+    "AdditiveEmbeddings", "BernsteinEmbedding", "BernsteinSplinesEmbedding",
+    "BernsteinSplinesOverlapping", "BumpsEmbedding", "ChebyschevEmbedding",
+    "ClenshawCurtisEmbedding", "ConcatEmbedding", "CustomEmbedding",
+    "CustomHaarBumps", "Embedding", "FaberSchauderEmbedding",
+    "HermiteEmbedding", "KLEmbedding", "KuhnExponentialEmbedding",
+    "LatticeEmbedding", "MaskedEmbedding", "MaternEmbedding",
+    "NystromFeatures", "OnehotEmbedding", "OptimalPositiveBasis",
+    "OverCompleteHermiteEmbedding", "PackingEmbedding", "PolynomialEmbedding",
+    "PositiveEmbedding", "PositiveNystromEmbeddingBump",
+    "ProjectiveEmbeddings", "QuadPeriodicEmbedding", "QuadratureEmbedding",
+    "RFFEmbedding", "RandomMap", "RandomNestedMap", "RandomOrthogonalMap",
+    "TrapezoidalEmbedding", "TriangleEmbedding", "WeightedEmbedding",
+    "box_trig_integrals", "nmf_multiplicative",
 ]

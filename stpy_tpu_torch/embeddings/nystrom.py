@@ -2,9 +2,11 @@
 a landmark Gram, the landmarks chosen uniformly, by ridge leverage scores
 or online; also the full-SVD, identity, cover and positive (NMF) bases.
 
-Port of stpy_tpu/embeddings/nystrom.py:28-292 (`nmf_multiplicative`,
-`NystromFeatures`). The Grams are the kernel's (csrc/gram.cu on the card,
-per atom, summed in place); the rest is torch.linalg and plain products.
+Port of stpy_tpu/embeddings/nystrom.py (`nmf_multiplicative`,
+`NystromFeatures`, and the positive subclasses
+`PositiveNystromEmbeddingBump` and `OptimalPositiveBasis`). The Grams are
+the kernel's (csrc/gram.cu on the card, per atom, summed in place); the
+rest is torch.linalg and plain products.
 Random draws come from a `torch.Generator` (`generator=`, default seeded
 17 as the JAX package's PRNGKey(17)); the JAX package's draws cannot be
 reproduced here, so `convert.load_nystrom_state` carries a fitted state
@@ -26,6 +28,7 @@ import torch
 
 from stpy_tpu_torch.config import as_tensor
 from stpy_tpu_torch.embeddings.base import Embedding
+from stpy_tpu_torch.embeddings.positive import PositiveEmbedding
 from stpy_tpu_torch.linalg import cho_solve, safe_cholesky, symsqrt
 
 # the landmark eigenvalue cut of stpy_tpu/embeddings/nystrom.py:142
@@ -257,3 +260,48 @@ class NystromFeatures(Embedding):
             return z
         Linv_z = torch.linalg.solve_triangular(self._L.T, z, upper=True)
         return self._theta + self.s * Linv_z
+
+
+class PositiveNystromEmbeddingBump(PositiveEmbedding):
+    """Nonnegative data-optimal basis: `NystromFeatures(approx=
+    "positive_svd")` fitted on 256 grid points of the interval
+    (stpy_tpu/embeddings/nystrom.py:295-323). The prior draws and the NMF
+    start come from `generator` (`NystromFeatures`' default where None)."""
+
+    def __init__(self, *args, samples=300, generator=None, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.samples = max(samples, self.m)
+        xgrid = self.borel_set.return_discretization(256)
+        self.GP = NystromFeatures(self.kernel_object, m=self.m,
+                                  approx="positive_svd", samples=self.samples,
+                                  generator=generator)
+        self.GP.fit_gp(xgrid, xgrid[:, :1] * 0)
+
+    def basis_fun(self, x, j):
+        return self.GP.embed(self._tensor(x).reshape(-1, 1))[:, j].reshape(-1, 1)
+
+    def _basis_matrix_1d(self, x1d):
+        return self.GP.embed(x1d.reshape(-1, 1))
+
+    def get_constraints(self):
+        s = self.m**self.d
+        l = torch.zeros(s, dtype=self.dtype, device=self.device)
+        u = torch.full((s,), 1e10, dtype=self.dtype, device=self.device)
+        return (l, torch.eye(s, dtype=self.dtype, device=self.device), u)
+
+
+class OptimalPositiveBasis(PositiveNystromEmbeddingBump):
+    """Data-optimal positive basis with disk save/load of the learned
+    basis. Saving and loading need the checkpoint format of
+    stpy_tpu/utils/checkpoint.py, which comes with ROADMAP Queue 1 item 12;
+    `convert.load_positive_embedding_state` carries a basis across."""
+
+    def save_embedding(self, path):
+        raise NotImplementedError(
+            "OptimalPositiveBasis.save_embedding needs utils/checkpoint "
+            "(ROADMAP Queue 1 item 12)")
+
+    def load_embedding(self, path):
+        raise NotImplementedError(
+            "OptimalPositiveBasis.load_embedding needs utils/checkpoint "
+            "(ROADMAP Queue 1 item 12)")

@@ -15,7 +15,8 @@ signature parity and have no effect: they pick the TPU's bf16-pass count and
 blocking, while the card computes in IEEE f32 / f64 (TF32 is off, see
 config.py). Of the rank-1 updates (stpy_tpu/linalg.py:395-446) only
 `woodbury_inv_update` is ported, with its caller models/feature_gp.py;
-`symsqrt` comes with embeddings/nystrom.py.
+`symsqrt` comes with embeddings/nystrom.py, `power_iteration` with
+inference/langevin.py.
 """
 
 from __future__ import annotations
@@ -153,6 +154,22 @@ def woodbury_inv_update(Vinv, u):
     Vu = Vinv @ u
     denom = 1.0 + u @ Vu
     return Vinv - torch.outer(Vu, Vu) / denom
+
+
+def power_iteration(A, iters: int = 50, generator=None):
+    """Top eigenvalue of a symmetric PSD matrix by `iters` power steps from
+    the normalised ones vector, or from a normal draw of `generator`."""
+    n = A.shape[0]
+    if generator is None:
+        v = torch.ones(n, dtype=A.dtype, device=A.device) / n ** 0.5
+    else:
+        v = torch.randn(n, generator=generator, dtype=A.dtype,
+                        device=generator.device).to(A.device)
+        v = v / torch.linalg.vector_norm(v)
+    for _ in range(iters):
+        w = A @ v
+        v = w / (torch.linalg.vector_norm(w) + 1e-30)
+    return v @ (A @ v)
 
 
 def symsqrt(A, inv: bool = False, eps: float = 1e-12):

@@ -1,3 +1,8 @@
+from stpy_tpu_torch.opt.ellipsoid import (
+    maximize_on_ellipsoid,
+    maximize_on_elliptical_slice,
+    project_ellipsoid,
+)
 from stpy_tpu_torch.opt.lbfgs import (
     LBFGSResult,
     make_box_bijector,

@@ -438,7 +438,10 @@ def minimize_newton_small(
         improved = (f_prev - f) > (rtol if rtol > 0 else 1e-12) * (1.0 + abs(f))
         stall = 0 if improved else stall + 1
         scale = torch.clamp(H.abs().max(), min=1e-12)
-        dstep = -torch.linalg.solve(H + (1e-6 * scale) * eye, g)
+        # solve_ex: a singular or NaN system gives inf/NaN, as
+        # jnp.linalg.solve does, for the fallback below (solve raises on
+        # the card)
+        dstep = -torch.linalg.solve_ex(H + (1e-6 * scale) * eye, g).result
         gd = torch.dot(g, dstep)
         if not bool(torch.isfinite(gd)) or bool(gd >= 0.0):
             dstep = -g * (torch.linalg.vector_norm(dstep) / torch.clamp(
