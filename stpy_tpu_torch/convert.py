@@ -1,6 +1,7 @@
 """Carry hyperparameters and fitted state (exact GP, iterative GP, online
-GP, embeddings, feature GPs, Nyström features, positive bases, Poisson rate
-estimators) from the JAX package to the port.
+GP, embeddings, feature GPs, Nyström features, positive bases, Poisson,
+link, log-linear, MBR and Bernoulli rate estimators) from the JAX package
+to the port.
 
 Inputs are numpy arrays (or anything with ``__array__``, such as a JAX
 array); nothing here imports JAX.
@@ -23,6 +24,32 @@ def params_from_jax(params_dict_numpy, device=None, dtype=torch.float64):
               for k, v in p.items()}
         for idx, p in params_dict_numpy.items()
     }
+
+
+def load_kernel_params(kernel_port, params_dict_numpy):
+    """Overwrite a port kernel's hyperparameters with a JAX kernel's
+    (`params_dict`, as numpy), e.g. a fitted full-covariance `cov`; they
+    stay float64 on the kernel's device."""
+    for idx, p in params_from_jax(params_dict_numpy,
+                                  device=kernel_port.device).items():
+        kernel_port.params_dict[idx].update(p)
+    return kernel_port
+
+
+def load_estimator_arrays(est_port, **arrays):
+    """Set named arrays of a fitted JAX estimator on a port one loaded with
+    the same data, each as a tensor of the estimator's dtype on its device
+    in its own shape: e.g. a link estimator's `rate`, `W`, `W_inv_approx`
+    or `sampled_theta`, an MBR estimator's (m, m) `rate`, a Bernoulli
+    estimator's `rate`. The ellipsoid cache is marked stale where `W` or
+    `rate` changes."""
+    for name, value in arrays.items():
+        setattr(est_port, name, as_tensor(np.asarray(value),
+                                          device=est_port.device,
+                                          dtype=est_port.dtype))
+    if {"rate", "W"} & set(arrays):
+        est_port.approx_fit = False
+    return est_port
 
 
 def load_fitted_state(gp_port, x, y, L, A, A_df=None, df_train=None):

@@ -14,6 +14,13 @@
 // (x_k - y_k)^2 directly rather than through the norm expansion: at d = 8 it
 // costs the same, and the diagonal of K(x, x) comes out exactly kappa.
 //
+// The L1 family (SHAPE_L1, shape code 4) is the Laplace kernel
+// kappa * exp(-||x - y||_1 / gamma^2) of the single tier: the wrapper scales
+// the coordinates by 1/gamma^2 in f64, the kernel accumulates |x_c - y_c| in
+// FP64 where the other families accumulate (x_c - y_c)^2, and the entry is
+// exp(-d1). The TPU kernel has no such family: the JAX package's double tier
+// maps laplace to the L2 Matern-1/2 (stpy_tpu/kernels/df_plan.py:56-57).
+//
 // Design: the layout of csrc/gram.cu in double -- one 64x64 output tile per
 // 256-thread block, 4x4 register sub-tiles strided by 16 for coalesced stores,
 // 16 features of x and y staged in shared memory per pass, ragged edges masked.
@@ -67,7 +74,10 @@ gram_df_kernel(const double* __restrict__ x, const double* __restrict__ y,
 #pragma unroll
         for (int j = 0; j < PER; ++j) {
           const double t = a[i] - b[j];
-          sq[i][j] = fma(t, t, sq[i][j]);
+          if (SHAPE == SHAPE_L1)
+            sq[i][j] += fabs(t);
+          else
+            sq[i][j] = fma(t, t, sq[i][j]);
         }
     }
     __syncthreads();
@@ -99,6 +109,7 @@ int launch(const double* x, const double* y, float* hi, float* lo, int n,
     case 1: gram_df_kernel<1, STAGE><<<grid, block, 0, s>>>(x, y, hi, lo, n, m, d, kappa); break;
     case 2: gram_df_kernel<2, STAGE><<<grid, block, 0, s>>>(x, y, hi, lo, n, m, d, kappa); break;
     case 3: gram_df_kernel<3, STAGE><<<grid, block, 0, s>>>(x, y, hi, lo, n, m, d, kappa); break;
+    case SHAPE_L1: gram_df_kernel<SHAPE_L1, STAGE><<<grid, block, 0, s>>>(x, y, hi, lo, n, m, d, kappa); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());

@@ -8,8 +8,11 @@
 // builds the same stages from f32 error-free transforms (`_df_entry`).
 //
 // Shape codes shared with stpy_tpu_torch/ops/gram.py:SHAPE_CODES: 0 SE,
-// 1/2/3 Matérn ν = 1/2, 3/2, 5/2. Stage codes shared with
-// stpy_tpu_torch/ops/gram_df_stages.py:STAGE_CODES.
+// 1/2/3 Matérn ν = 1/2, 3/2, 5/2; and 4, the L1 (Laplace) family of
+// csrc/gram_df.cu (stpy_tpu_torch/ops/gram_df.py:L1_CODE), whose argument is
+// the L1 distance d1 = Σ|x_c − y_c| of coordinates scaled by 1/γ², its entry
+// e^{-d1}. Stage codes shared with stpy_tpu_torch/ops/gram_df_stages.py:
+// STAGE_CODES.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -22,10 +25,13 @@ constexpr int STAGE_T = 2;       // t
 constexpr int STAGE_EXP = 3;     // e^{-t}
 constexpr int STAGE_SL = 4;      // sqrt(sq), the distance (stage probe only)
 
+constexpr int SHAPE_L1 = 4;      // Laplace: the argument is the L1 distance
+
 // The exponent: t = sqrt(2 nu sq) for Matérn (the 1e-300 as _f64_reference),
 // t = sq / 2 for SE, whose entry is then e^{-t} as for Matérn-1/2.
 template <int SHAPE>
 __device__ __forceinline__ double df_t(double sq) {
+  if (SHAPE == SHAPE_L1) return sq;
   if (SHAPE == 0) return 0.5 * sq;
   const double nu2 = SHAPE == 1 ? 1.0 : (SHAPE == 2 ? 3.0 : 5.0);   // 2 nu
   return sqrt(nu2 * sq + 1e-300);
@@ -36,7 +42,7 @@ __device__ __forceinline__ double df_exp(double t) { return exp(-t); }
 template <int SHAPE>
 __device__ __forceinline__ double df_entry(double sq) {
   const double t = df_t<SHAPE>(sq);
-  if (SHAPE <= 1) return df_exp(t);
+  if (SHAPE <= 1 || SHAPE == SHAPE_L1) return df_exp(t);
   if (SHAPE == 2) return (1.0 + t) * df_exp(t);
   return (1.0 + t + t * t / 3.0) * df_exp(t);
 }

@@ -119,20 +119,16 @@ class PositiveEmbedding(Embedding):
 
     def _grid_gram64(self):
         """The kernel's Gram on the grid nodes in float64: for a kernel
-        narrower than float64, the double-float Gram (csrc/gram_df.cu on
-        the card) of the float64 nodes where every atom is a df family,
-        else the kernel's own Gram promoted."""
+        narrower than float64, the double-float Gram of the float64 nodes
+        (csrc/gram_df.cu on the card for the fused families), else the
+        kernel's own Gram."""
         ko = self.kernel_object
         t64 = self.grid_nodes64()
         if ko.dtype != torch.float64:
-            try:
-                desc = df_atom_desc(ko)
-            except NotImplementedError:
-                desc = None
-            if desc is not None:
-                Kh, Kl = df_gram_from_desc(ko, ko.params_dict, t64, t64, desc)
-                K = Kh.double() + Kl.double()
-                return 0.5 * (K + K.T)
+            Kh, Kl = df_gram_from_desc(ko, ko.params_dict, t64, t64,
+                                       df_atom_desc(ko))
+            K = Kh.double() + Kl.double()
+            return 0.5 * (K + K.T)
         return ko.gram(t64).double()
 
     def cov(self, inverse=False):

@@ -1,23 +1,40 @@
 """Double-float (hi, lo) Gram planning over `KernelFunction` atoms.
 
-Port of the fused-family part of stpy_tpu/kernels/df_plan.py
-(`df_atom_desc`, `df_gram_from_desc`, `df_diag_from_desc`). Every atom goes
-through the df Gram of ops/gram_df.py; composites fold their pairs in
-float64 and split again (ops/gram_df.df_add / df_mul). The general-ν Matérn
-and generic-interpreter tiers (`matern_gen`, `generic`) and `strip_fold` are
-not ported: the general double tier is ROADMAP Queue 1 item 7.
+Port of stpy_tpu/kernels/df_plan.py (`df_atom_desc`, `df_gram_from_desc`,
+`df_diag_from_desc`), read by the dense double tier (models/exact_gp.py) and
+the matrix-free one (parallel/iterative.py). Per atom:
+
+* SE / ARD / Matérn ½, 3/2, 5/2 → the df Gram of ops/gram_df.py
+  (csrc/gram_df.cu on the card);
+* laplace → its L1 family: κ·exp(−‖x − y‖₁/γ²), the single tier's kernel.
+  The JAX package maps laplace to the L2 Matérn-½ here
+  (stpy_tpu/kernels/df_plan.py:56-57), a different kernel; the port does
+  not copy that (ROADMAP Queue 3);
+* general-ν Matérn (`matern_gen`) and every other atom (`generic`: the
+  additive families, polynomial, linear, gibbs, custom, ...) → the atom's
+  own torch function (`_Atom.plain`) on float64 inputs and float64
+  parameters, in row blocks, split into (hi, lo) by `split_f64`.
+
+The JAX package needs a jaxpr double-float interpreter (ops/df_interp.py)
+and a node-scanned df Bessel (ops/matern_df.py) for the last two because
+the TPU has no f64; the card has, so neither is ported, nor `strip_fold`.
+Composites fold their pairs in float64 and split again (`df_add`,
+`df_mul`).
 """
 
 from __future__ import annotations
 
 import torch
 
-from stpy_tpu_torch.ops.gram_df import df_add, df_mul, gram_df
+from stpy_tpu_torch.ops.gram_df import df_add, df_mul, gram_df, split_f64
+
+# elements of one float64 row block of a generic atom (256 MiB)
+_GENERIC_BLOCK_ELEMS = 1 << 25
 
 
 def df_atom_desc(kernel_object):
     """Static per-atom (index, family, nu, gamma_key, group, op) plan for
-    the double-float Gram. Raises for atoms outside the fused families."""
+    the double-float Gram."""
     ko = kernel_object
     full = list(range(ko.d))
     desc = []
@@ -27,31 +44,42 @@ def df_atom_desc(kernel_object):
             group = None
         nu = float(atom.static.get("nu", 1.5))
         name = atom.name
-        if name == "squared_exponential":
-            fam, gkey, nu = "se", "gamma", 1.0
-        elif name == "ard":
-            fam, gkey, nu = "se", "ard_gamma", 1.0
-        elif name in ("matern", "ard_matern") and nu in (0.5, 1.5, 2.5):
-            fam = "matern"
-            gkey = "gamma" if name == "matern" else "ard_gamma"
-        elif name == "laplace":
-            # the JAX package's double tier maps laplace to the L2 Matérn-½
-            # (stpy_tpu/kernels/df_plan.py:56-57), a different kernel from
-            # the L1 one of its single tier; the port does not copy that
-            raise NotImplementedError(
-                "precision='double' for the laplace atom: the reference's "
-                "double tier computes an L2 Matérn-1/2 instead of the L1 "
-                "Laplace kernel, ROADMAP Queue 3"
-            )
-        else:
-            raise NotImplementedError(
-                f"precision='double' for kernel atom {name!r}: the "
-                "matern_gen and generic df tiers are ROADMAP Queue 1 item 7"
-            )
+        fam = gkey = None
+        if atom.static.get("groups") is None:
+            if name == "squared_exponential":
+                fam, gkey, nu = "se", "gamma", 1.0
+            elif name == "ard":
+                fam, gkey, nu = "se", "ard_gamma", 1.0
+            elif name in ("matern", "ard_matern"):
+                fam = "matern" if nu in (0.5, 1.5, 2.5) else "matern_gen"
+                gkey = "gamma" if name == "matern" else "ard_gamma"
+            elif name == "laplace":
+                fam, gkey, nu = "laplace", "gamma", 0.5
+        if fam is None:
+            # the atom's function receives full inputs and slices its own
+            # group, as in eval_params
+            fam, nu, group = "generic", 0.0, None
         desc.append((i, fam, nu, gkey,
                      None if group is None else tuple(group),
                      ko.operations[i]))
     return desc
+
+
+def _generic_df_gram(kernel_object, i, p, a, b):
+    """(hi, lo) Gram of atom i by its plain function in float64, in row
+    blocks of at most `_GENERIC_BLOCK_ELEMS` float64 entries."""
+    atom = kernel_object._atoms[i]
+    f64 = torch.float64
+    a64, b64 = a.to(f64), b.to(f64)
+    rows = max(1, _GENERIC_BLOCK_ELEMS // max(1, b.shape[0]))
+    hi = torch.empty((a.shape[0], b.shape[0]), dtype=torch.float32,
+                     device=a.device)
+    lo = torch.empty_like(hi)
+    with torch.no_grad():
+        for r0 in range(0, a.shape[0], rows):
+            h, l = split_f64(atom.plain(p, a64[r0:r0 + rows], b64).to(f64))
+            hi[r0:r0 + rows], lo[r0:r0 + rows] = h, l
+    return hi, lo
 
 
 def df_gram_from_desc(kernel_object, params_dict, a, b, desc):
@@ -60,16 +88,19 @@ def df_gram_from_desc(kernel_object, params_dict, a, b, desc):
     for (i, fam, nu, gkey, group, op) in desc:
         p = {**kernel_object.params_dict[str(i)],
              **params_dict.get(str(i), {})}
-        gamma = p[gkey]
-        if group is not None:
-            idx = torch.as_tensor(group, device=a.device)
-            a_, b_ = a[:, idx], b[:, idx]
-            if gkey == "ard_gamma":
-                gamma = gamma.reshape(-1)[idx.to(gamma.device)]
+        if fam in ("generic", "matern_gen"):
+            Kh, Kl = _generic_df_gram(kernel_object, i, p, a, b)
         else:
-            a_, b_ = a, b
-        Kh, Kl = gram_df(a_, b_, gamma, p.get("kappa", 1.0), family=fam,
-                         nu=nu)
+            gamma = p[gkey]
+            if group is not None:
+                idx = torch.as_tensor(group, device=a.device)
+                a_, b_ = a[:, idx], b[:, idx]
+                if gkey == "ard_gamma":
+                    gamma = gamma.reshape(-1)[idx.to(gamma.device)]
+            else:
+                a_, b_ = a, b
+            Kh, Kl = gram_df(a_, b_, gamma, p.get("kappa", 1.0), family=fam,
+                             nu=nu)
         if op == "+":
             outh, outl = df_add(outh, outl, Kh, Kl)
         elif op == "*":
@@ -81,7 +112,7 @@ def df_gram_from_desc(kernel_object, params_dict, a, b, desc):
 
 def df_diag_from_desc(kernel_object, params_dict, x, desc, chunk=512):
     """df (hi, lo) prior diagonal k**(x): the diagonals of chunked
-    (chunk, chunk) df Grams of slices of x, so every df atom family gets a
+    (chunk, chunk) df Grams of slices of x, so every atom family gets a
     double-float k**. The variance k** − q cancels; an f32 k** would floor
     it at eps·k**/var for kernels whose k** is not an f32 number."""
     hs, ls = [], []

@@ -117,7 +117,9 @@ class Estimator(ABC):
         `params` = {kernel_idx: {var_name: (init, shape_hint, bounds)}}, with
         'likelihood'/'sigma' addressing the noise level. `optimizer` is
         'lbfgs' (also under the reference's names 'pymanopt' /
-        'pytorch-minimize') or 'bisection'. The route rule is the JAX
+        'pytorch-minimize'), 'bisection' or 'discrete' (a search over the
+        group structures a parameter lists, `_optimize_discrete`). The
+        route rule is the JAX
         package's: at most 2 parameters and no regularizer go to damped
         Newton, else L-BFGS with the batched line search while its
         candidates fit the memory budget, else with backtracking.
@@ -127,9 +129,7 @@ class Estimator(ABC):
         kernel = self.kernel_object
         dt, dev = torch.float64, self.device
         if optimizer == "discrete":
-            raise NotImplementedError(
-                "optimizer='discrete' (additive-group selection) comes with "
-                "the kernel tail's groups (ROADMAP Queue 1 item 7)")
+            return self._optimize_discrete(params, weight)
         if generator is None:
             generator = torch.Generator().manual_seed(13)
 
@@ -248,6 +248,35 @@ class Estimator(ABC):
         kernel.set_params(override)
         if "likelihood" in params:
             self.s = float(s_val)
+        self.fitted = False
+        self.fit_gp(self.x, self.y)
+        return True
+
+    def _optimize_discrete(self, params, weight):
+        """Search over discrete configurations: each group structure of
+        `params` = {kernel_idx: {var: (init, configurations, bound)}} in
+        turn, its atom rebuilt with it, scored by the evidence; the first
+        least value wins (strict <, the JAX package's order), then the
+        refit."""
+        atoms = self.kernel_object._atoms
+        best_val, best_cfg, target = np.inf, None, None
+        for pkey, dparams in params.items():
+            atom = atoms[int(pkey)]
+            for var, (_init, configurations, _bound) in dparams.items():
+                old = atom.static.get("groups")
+                for config in configurations:
+                    atom.static["groups"] = config
+                    atom.rebuild()
+                    with torch.no_grad():
+                        val = float(self.log_marginal_params(
+                            self.kernel_object, {}, self.s, weight))
+                    if val < best_val:
+                        best_val, best_cfg, target = val, config, pkey
+                atom.static["groups"] = old
+                atom.rebuild()
+        if best_cfg is not None:
+            atoms[int(target)].static["groups"] = best_cfg
+            atoms[int(target)].rebuild()
         self.fitted = False
         self.fit_gp(self.x, self.y)
         return True

@@ -29,9 +29,10 @@ adversarially robust mean by FISTA or L-BFGS.
 
 PyTorch runs eagerly, so the JAX package's jitted closures become plain
 methods, and where the JAX method takes a `key` the port takes a
-`torch.Generator` (`generator=`). The manifold and group fits
-(`optimize_params(type="covariance" | "rots" | "groups")`) raise
-NotImplementedError naming the ROADMAP item that ports them.
+`torch.Generator` (`generator=`). `optimize_params(type="groups")` searches
+the additive group structures (`Estimator._optimize_discrete`), and
+`type="covariance" | "rots"` fits a full-covariance kernel's `cov` on the
+PSD or Stiefel manifold (opt/manifold.py).
 """
 
 from __future__ import annotations
@@ -61,8 +62,10 @@ from stpy_tpu_torch.models.estimator import Estimator
 from stpy_tpu_torch.ops.gemv_df import gemv_df
 from stpy_tpu_torch.ops.qform_df import qform_refined
 from stpy_tpu_torch.opt.lbfgs import minimize_lbfgs
+from stpy_tpu_torch.opt.manifold import optimize_psd, optimize_stiefel
 from stpy_tpu_torch.opt.prox import fista_prox_backtracking
 from stpy_tpu_torch.opt.scalar import bisection
+from stpy_tpu_torch.utils.groups import generate_groups
 
 
 def _softplus(x):
@@ -150,11 +153,13 @@ class GaussianProcess(Estimator):
         self._df_desc = None
         if precision == "double":
             self._df_desc = df_atom_desc(self.kernel_object)
-            # every ported atom is a fused df family: one exact-residual
-            # step lands on the df representation floor
-            # (stpy_tpu/models/exact_gp.py:209-211)
+            # the JAX package's default (stpy_tpu/models/exact_gp.py:209-211):
+            # one exact-residual step lands a fused family on the df floor;
+            # three where an atom is generic
+            generic = any(d[1] == "generic" for d in self._df_desc)
             self._df_refine_steps_resolved = (
-                1 if df_refine_steps is None else max(0, int(df_refine_steps)))
+                (3 if generic else 1) if df_refine_steps is None
+                else max(0, int(df_refine_steps)))
 
     # -- descriptions ----------------------------------------------------------
     def description(self):
@@ -463,18 +468,14 @@ class GaussianProcess(Estimator):
     def _gram64(self, a, b):
         """The Gram K(a, b) in float64 for `_moments64`: on a model narrower
         than float64, from the double-float Gram (csrc/gram_df.cu on the
-        card) where every atom is a df family, else the model's Gram
-        promoted."""
+        card for the fused families, float64 torch ops for the others),
+        else the model's own Gram."""
         ko, pd = self.kernel_object, self.kernel_object.params_dict
         f64 = torch.float64
         if self.dtype != f64:
-            try:
-                desc = self._df_desc or df_atom_desc(ko)
-            except NotImplementedError:   # laplace, composites outside df
-                desc = None
-            if desc is not None:
-                Kh, Kl = df_gram_from_desc(ko, pd, a, b, desc)
-                return Kh.to(f64) + Kl.to(f64)
+            Kh, Kl = df_gram_from_desc(ko, pd, a, b,
+                                       self._df_desc or df_atom_desc(ko))
+            return Kh.to(f64) + Kl.to(f64)
         return ko.eval_params(pd, a, b).to(f64)
 
     def _moments64(self, xtest):
@@ -641,7 +642,11 @@ class GaussianProcess(Estimator):
     ):
         """Fit the kernel's bandwidths (`type="bandwidth"`), bandwidths and
         noise (`"bandwidth+noise"`) or amplitudes (`"kappa"`) on the
-        evidence by `optimize_params_general`, then refit.
+        evidence by `optimize_params_general`, the group structure of its
+        additive atoms (`"groups"`: every partition of the d coordinates)
+        or a full-covariance atom's `cov` (`"covariance"`, `"rots"`:
+        `_optimize_cov_manifold`, `restarts` starts from `generator`),
+        then refit.
         `regularizer=("spectral_norm" | "lasso", λ)` adds
         λ·Σ|exp(−raw)|."""
         regularizer_func = None
@@ -667,13 +672,17 @@ class GaussianProcess(Estimator):
                 if "kappa" in d2:
                     params[pkey] = {"kappa": (init_func, None, bounds)}
         elif type in ("covariance", "rots"):
-            raise NotImplementedError(
-                f"type={type!r}: the manifold fits of a full-covariance "
-                "kernel come with opt/manifold (ROADMAP Queue 1 item 9)")
+            # the full-covariance kernel's `cov` on the PSD manifold
+            # (covariance) or the Stiefel manifold (rots)
+            return self._optimize_cov_manifold(
+                type, restarts=restarts, maxiter=maxiter, weight=weight,
+                generator=generator)
         elif type == "groups":
-            raise NotImplementedError(
-                "type='groups': additive-group selection comes with the "
-                "kernel tail's groups (ROADMAP Queue 1 item 7)")
+            optimizer = "discrete"
+            d = self.kernel_object.d
+            for pkey in pdict:
+                if self.kernel_object._atoms[int(pkey)].static.get("groups"):
+                    params[pkey] = {"groups": (None, generate_groups(d), None)}
         else:
             raise AttributeError("This quick-optimization is not implemented.")
 
@@ -684,6 +693,41 @@ class GaussianProcess(Estimator):
             weight=weight, save=save, save_name=save_name,
             generator=generator, **hyperopt_kwargs,
         )
+
+    def _optimize_cov_manifold(self, type, restarts=4, maxiter=200,
+                               weight=1.0, generator=None):
+        """Fit the full-covariance kernel's `cov` on the evidence over the
+        PSD manifold (type='covariance': L-BFGS on the factor of A = Y Yᵀ)
+        or the Stiefel manifold (type='rots': projected gradient steps with
+        QR retraction), then refit. `generator` draws the restarts'
+        starts."""
+        kernel = self.kernel_object
+        target_key = None
+        for pkey, d2 in kernel.params_dict.items():
+            if "cov" in d2:
+                target_key = pkey
+        if target_key is None:
+            raise AttributeError(
+                "No `cov` kernel parameter to optimize (use a "
+                "full_covariance_* kernel).")
+        d = kernel.params_dict[target_key]["cov"].shape[0]
+
+        def objective(C):
+            return self.log_marginal_params(
+                kernel, {target_key: {"cov": C}}, self.s, weight)
+
+        if type == "covariance":
+            C_opt, _ = optimize_psd(objective, d, restarts=restarts,
+                                    generator=generator, max_iter=maxiter,
+                                    device=self.device)
+        else:
+            C_opt, _ = optimize_stiefel(objective, d, d, restarts=restarts,
+                                        generator=generator, steps=maxiter,
+                                        device=self.device)
+        kernel.params_dict[target_key]["cov"] = C_opt.detach()
+        self.fitted = False
+        self.fit_gp(self.x, self.y)
+        return True
 
     # -- BO acquisition (gauss_procc.py:918-1085) ------------------------------
     def _acquisition(self, pts, beta, sign):

@@ -42,7 +42,9 @@ def shape_code(family: str, nu: float, shape: str = "k") -> int:
     if key not in SHAPE_CODES:
         raise NotImplementedError(
             f"fused Gram for family={family!r}, nu={nu}: only SE and Matérn "
-            "nu in (0.5, 1.5, 2.5) are fused (ROADMAP Queue 1 item 7)"
+            "nu in (0.5, 1.5, 2.5) have a fused kernel; the JAX package's "
+            "matrix-free products raise for a general nu too "
+            "(stpy_tpu/ops/pallas_gram_matvec.py:58,82)"
         )
     if shape not in SHAPES:
         raise ValueError(f"shape={shape!r}: not one of {SHAPES}")

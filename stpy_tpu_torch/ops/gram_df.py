@@ -1,4 +1,5 @@
-"""Double-float (hi, lo) Gram for the SE and half-integer Matérn families.
+"""Double-float (hi, lo) Gram for the SE, half-integer Matérn and Laplace
+(L1) families.
 
 Port of stpy_tpu/ops/pallas_gram_df.py (`gram_df`, `_df_add`, `_df_mul`).
 The contract is unchanged: two f32 arrays with hi + lo = k(x, y) to f64
@@ -11,6 +12,11 @@ pallas_gram_df.py:549-581 intends — so an f32-inexact γ such as 1.1 keeps its
 full value (the JAX package needs lo-limb shadows for that; the port does
 not). For CUDA tensors `gram_df_scaled` launches csrc/gram_df.cu; for CPU
 tensors it runs `gram_df_plain`.
+
+The L1 family ("laplace", shape code `L1_CODE`) is the single tier's Laplace
+kernel κ·exp(−‖x − y‖₁/γ²) in double-float: coordinates scaled by 1/γ² in
+f64, |x_c − y_c| summed in FP64. The JAX package's double tier has no such
+family and maps laplace to the L2 Matérn-½ instead (ROADMAP Queue 3).
 """
 
 from __future__ import annotations
@@ -20,6 +26,10 @@ import torch
 from stpy_tpu_torch import _build
 from stpy_tpu_torch.ops import check_cuda_inputs
 from stpy_tpu_torch.ops.gram import shape_code
+
+
+# csrc/gram_df_entry.cuh:SHAPE_L1, beside ops/gram.py:SHAPE_CODES
+L1_CODE = 4
 
 
 def split_f64(k: torch.Tensor):
@@ -36,6 +46,15 @@ def _sq_f64(xs, ys):
         t = xs[:, c, None] - ys[None, :, c]
         sq.addcmul_(t, t)
     return sq
+
+
+def _l1_f64(xs, ys):
+    """L1 distances of f64 coordinates, summed feature by feature."""
+    d1 = torch.zeros((xs.shape[0], ys.shape[0]), dtype=torch.float64,
+                     device=xs.device)
+    for c in range(xs.shape[1]):
+        d1.add_(torch.abs(xs[:, c, None] - ys[None, :, c]))
+    return d1
 
 
 def _t_f64(sq, family, nu):
@@ -59,13 +78,15 @@ def _kernel_f64(sq: torch.Tensor, kappa: float, family: str, nu: float):
 def gram_df_plain(xs, ys, kappa, family="se", nu=1.5):
     """Plain PyTorch version of the kernel: f64 differences, shape and κ,
     split into an f32 pair."""
+    if family == "laplace":
+        return split_f64(float(kappa) * torch.exp(-_l1_f64(xs, ys)))
     return split_f64(_kernel_f64(_sq_f64(xs, ys), float(kappa), family, nu))
 
 
 def gram_df_scaled(xs, ys, kappa, family="se", nu=1.5):
-    """(hi, lo) Gram of f64 coordinates already scaled by 1/γ. CUDA: the
-    hand kernel; CPU: `gram_df_plain`."""
-    code = shape_code(family, nu)
+    """(hi, lo) Gram of f64 coordinates already scaled by 1/γ (1/γ² for
+    "laplace"). CUDA: the hand kernel; CPU: `gram_df_plain`."""
+    code = L1_CODE if family == "laplace" else shape_code(family, nu)
     if not xs.is_cuda:
         return gram_df_plain(xs, ys, kappa, family, nu)
     check_cuda_inputs("gram_df", torch.float64, xs, ys)
@@ -95,10 +116,14 @@ def gram_df(x, y, gamma, kappa=1.0, *, family="se", nu=1.5):
     """Double-float Gram (hi, lo), f32 each, with hi + lo = k(x, y).
 
     family "se": κ·exp(−‖x−y‖²/(2γ²)); "matern": κ·P_ν(t)·e^{−t} with
-    t = √(2ν)·‖x−y‖/γ and ν ∈ {½, 3/2, 5/2}. γ is a scalar or per-dim (ARD).
+    t = √(2ν)·‖x−y‖/γ and ν ∈ {½, 3/2, 5/2}; "laplace": κ·exp(−‖x−y‖₁/γ²).
+    γ is a scalar or per-dim (ARD).
     """
-    if family not in ("se", "matern"):
+    if family not in ("se", "matern", "laplace"):
         raise NotImplementedError(f"df gram family {family!r}")
+    if family == "laplace":
+        g = torch.as_tensor(gamma, dtype=torch.float64, device=x.device)
+        gamma = g * g
     return gram_df_scaled(scale_coords(x, gamma), scale_coords(y, gamma),
                           kappa, family, float(nu))
 

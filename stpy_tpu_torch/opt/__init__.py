@@ -10,6 +10,11 @@ from stpy_tpu_torch.opt.lbfgs import (
     minimize_lbfgs,
     minimize_newton_small,
 )
+from stpy_tpu_torch.opt.manifold import (
+    optimize_psd,
+    optimize_stiefel,
+    stiefel_project_tangent,
+)
 from stpy_tpu_torch.opt.prox import (
     SolveResult,
     fista_backtracking,

@@ -60,6 +60,8 @@ def fast_atoms(kernel_object):
     out = []
     d = kernel_object.d
     for i, atom in enumerate(atoms):
+        if atom.static.get("groups") is not None:
+            return None  # additive-over-groups atoms: the general tier
         nu = atom.static.get("nu", 1.5)
         group = atom.static.get("group")
         if group is not None and list(group) == list(range(d)):

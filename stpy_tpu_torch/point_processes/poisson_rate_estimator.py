@@ -578,6 +578,16 @@ class PoissonRateEstimator(RateEstimator):
             raise AssertionError("Not implemented.")
         return self._plus_s(W)
 
+    def _visited_inverse_variances(self):
+        """τ_i/v_i on the visited buckets, 0 elsewhere (in float64, on the
+        device): the count-record weights without the variance correction,
+        as the log-linear and MBR covariances take them."""
+        tau = self.total_bucketized_time.double()
+        var = self.variances.double()
+        Dw = torch.where(self.bucketized_counts > 0, tau / var,
+                         torch.zeros_like(tau))
+        return Dw.to(self.dtype)
+
     def _visited_weights(self):
         """τ_i/(v_i·k_i) on the visited buckets, 0 elsewhere: v_i the
         bucket's variance and k_i its correction at v_i·τ_i."""

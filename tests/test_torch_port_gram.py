@@ -149,17 +149,6 @@ def test_hyperparameters_are_float64_on_the_kernel_device():
     assert tk.cross(x, x).dtype == torch.float32
 
 
-@pytest.mark.parametrize("kwargs", [
-    dict(kernel_name="polynomial"),
-    dict(kernel_name="matern", nu=2.2),
-    dict(kernel_name="ard", groups=[[0], [1, 2]]),
-    dict(kernel_function=lambda p, a, b: a @ b.T),
-], ids=["polynomial", "matern-general-nu", "ard-groups", "custom"])
-def test_unported_kernels_raise_naming_the_roadmap(kwargs):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TorchKernel(d=3, device="cpu", **kwargs)
-
-
 def test_no_device_means_the_card_and_never_the_cpu():
     """Without CUDA, a kernel or GP built with no `device` raises instead
     of quietly returning a CPU object."""

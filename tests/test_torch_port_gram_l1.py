@@ -100,8 +100,9 @@ def test_gram_family_laplace_routes_to_the_l1_gram():
 def test_port_laplace_is_the_l1_kernel_where_the_reference_double_tier_is_not():
     """The JAX package's double tier maps the laplace atom to the L2
     Matérn-½ (stpy_tpu/kernels/df_plan.py:56-57), its single tier computes
-    the L1 kernel. The port follows the single tier and the original stpy,
-    and its double tier raises instead (ROADMAP Queue 3)."""
+    the L1 kernel. The port follows the single tier and the original stpy
+    in both tiers: its double tier is the L1 family of the double-float
+    Gram (ROADMAP Queue 3)."""
     x = np.random.default_rng(0).uniform(-1, 1, (40, 3))
     jk = JaxKernel(kernel_name="laplace", gamma=0.7, d=3)
     single = np.asarray(jk.cross(jnp.asarray(x), jnp.asarray(x)))
@@ -113,3 +114,9 @@ def test_port_laplace_is_the_l1_kernel_where_the_reference_double_tier_is_not():
     tk = TorchKernel(kernel_name="laplace", gamma=0.7, d=3,
                      dtype=torch.float64, device="cpu")
     assert rel_err(tk.cross(x, x).numpy(), single) <= GRAM_RTOL
+    from stpy_tpu_torch.kernels import df_plan
+
+    h, l = df_plan.df_gram_from_desc(tk, {}, torch.as_tensor(x),
+                                     torch.as_tensor(x),
+                                     df_plan.df_atom_desc(tk))
+    assert rel_err(h.double().numpy() + l.double().numpy(), single) <= 1e-13

@@ -424,15 +424,15 @@ def test_cuda_wrappers_take_f32_only(wrapper):
 
 def test_derivative_shapes_raise_naming_the_roadmap():
     """The derivative shapes exist for the fused families (held to the JAX
-    package above); for a family without a fused kernel they raise naming
-    the ROADMAP item that holds it, as the shape "k" does."""
+    package above); for a general ν they raise, as the shape "k" does and
+    as the JAX package's matrix-free products do."""
     x, y, v, V = (torch.as_tensor(a) for a in operands(6, 5, 2))
     for kind in ("dk", "dk_sq"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+        with pytest.raises(NotImplementedError, match="have a fused kernel"):
             gram_matmat(x, y, V, family="matern", nu=3.5, shape=kind)
-        with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+        with pytest.raises(NotImplementedError, match="have a fused kernel"):
             gram_matvec_scaled(x, y, v, 1.0, "matern", 3.5, kind)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+    with pytest.raises(NotImplementedError, match="have a fused kernel"):
         gram_matvec(x, y, v, family="matern", nu=3.5, deriv=True)
     with pytest.raises(ValueError, match="not one of"):
         gram_matmat(x, y, V, shape="d2k")
