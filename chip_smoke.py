@@ -66,7 +66,18 @@ and peak memory, SE + linear in the double tier, all at n = ntest = 16384
 against the port's float64 models; the additive-group search at n = 4096
 and the full-covariance manifold fits at n = 1024 against the float64
 model; and the log-linear, link, MBR and Bernoulli estimators on config
-4's setup against the truth and their float64 models.
+4's setup against the truth and their float64 models; then (phase 19)
+approximate inference, MKL and the rest of the point-process stack, each
+f32 model against the same port model in float64 on the card:
+MultipleKernelLearner (SE + Matérn-3/2 + Laplace, n = 4096, d = 4, y a
+draw of the Laplace atom) with gram and gram_l1 held to their plain
+versions at its shapes, the group-lasso MKL and PrimalMKL on three RFF
+embeddings, the SGCP on a known 2-D sigmoidal Cox rate (its integrated
+rate against the truth, its exact and linear-response bands), tmg's
+truncated-normal means, EP against the conjugate posterior, the
+Dirichlet and categorical mixtures, GammaContProcess at n = 16384,
+TraceFeatures, ConvexRKHS and each likelihood's objective and confidence
+set.
 Phase 2c
 holds both matrix-free kernels in their derivative
 shapes ("dk_sq", "dk") too, and gram_matvec's backward against float64
@@ -106,6 +117,11 @@ import numpy as np
 import torch
 
 from stpy_tpu_torch import GaussianProcess, KernelFunction, _build, linalg
+from stpy_tpu_torch import probability
+from stpy_tpu_torch.approx_inference import (
+    ExpectedPropagationQuadratic, SGCPVariational,
+)
+from stpy_tpu_torch.inference import tmg_sample
 from stpy_tpu_torch.ops import (
     gram_df_stages, launch_counts, reset_launch_counts,
 )
@@ -116,12 +132,16 @@ from stpy_tpu_torch.ops.gemv_df import gemv_df, gemv_df_plain
 from stpy_tpu_torch.kernels.df_plan import df_gram_from_desc
 from torch.utils._python_dispatch import TorchDispatchMode
 
-from stpy_tpu_torch.domains import HierarchicalBorelSets
+from stpy_tpu_torch.domains import BorelSet, HierarchicalBorelSets
 from stpy_tpu_torch.embeddings import (
-    HermiteEmbedding, NystromFeatures, TriangleEmbedding,
+    HermiteEmbedding, NystromFeatures, RFFEmbedding, TriangleEmbedding,
 )
 from stpy_tpu_torch.embeddings.nystrom import EIG_CUT
-from stpy_tpu_torch.models import KernelizedFeatures, OnlineGP, exact_gp
+from stpy_tpu_torch.models import (
+    MKL, CategoricalMixture, ConvexRKHS, DirichletMixture, GammaContProcess,
+    KernelizedFeatures, MultipleKernelLearner, OnlineGP, PrimalMKL,
+    TraceFeatures, exact_gp,
+)
 from stpy_tpu_torch.ops.gram import (
     gram, gram_plain, gram_scaled, gram_se, shape_and_slope,
 )
@@ -580,7 +600,7 @@ ONLINE_CAP, ONLINE_MEAN_RTOL, ONLINE_STD_RTOL = 2048, 1e-4, 1e-4
 # landmarks, their atoms evaluating the plain versions (`plain64_atoms`).
 # Each timed call: one warm-up, then FEATURE_REPS runs, median and IQR, as
 # benchmarks/run_all.py times them.
-FEATURE_REPS = 3          # since PR 15 (5 before)
+FEATURE_REPS = 2          # since PR 16 (3 in PR 15, 5 before)
 # 16.1: run_all.py config 2 as written (:94-127): x ~ U(−1, 1)^(512 × 2),
 # y = sin 3x₀ · cos 2x₁ (numpy seed 1), 1024 test points; the port's exact
 # GP (γ = 0.5, s = 0.05), then HermiteEmbedding(0.5, 512, 2) (484 features)
@@ -691,7 +711,8 @@ COV_EVIDENCE_RTOL = 1e-3
 # H100 and 48 s on a slow host, twice that under DeviceOps: its cold fit
 # under DeviceOps is its one timed f32 fit (no warm fits; see
 # GENERAL_FIT_STEPS on the time limit).
-ESTIMATOR_REPS, LOGLINEAR_TRUE_RTOL = 3, 0.2
+# 2 warm reps since PR 16 (3 before), to pay for phase 19
+ESTIMATOR_REPS, LOGLINEAR_TRUE_RTOL = 2, 0.2
 PHASE18_ESTIMATORS = (
     ("LogLinearRateEstimator", LogLinearRateEstimator, {},
      LOGLINEAR_TRUE_RTOL, ESTIMATOR_REPS),
@@ -4642,6 +4663,628 @@ def bernoulli_phase(dev):
     return out
 
 
+# -- phase 19: approximate inference, MKL and the rest of the point-process
+# stack (each f32 model held to the same port model in float64 on the card)
+MKL_N, MKL_D, MKL_T = 4096, 4, 1024
+# (kernel_name, γ, ν): SE 0.5, Matérn-3/2 0.8, Laplace 1.0
+MKL_ATOMS = (("squared_exponential", 0.5, 1.5), ("matern", 0.8, 1.5),
+             ("laplace", 1.0, 1.5))
+MKL_DRAW = 2             # y: a draw of the Laplace atom, plus noise
+MKL_NOISE = 0.1
+MKL_ALPHA_ATOL = 1e-3   # CPU rehearsal (tools/phase19_gap.py): 1.4e-98
+MKL_MEAN_RTOL = 1e-4     # CPU: 1.5e-5
+MKL_FEATURES = 256       # per RFF embedding (SE 0.5, SE 0.8, Laplace 1.0)
+MKL_FEATURE_LAM, MKL_FEATURE_S = 1.0, 0.1
+MKL_FEATURE_OBJ_RTOL = 0.05  # the group-lasso objective, f32 fit over f64 fit (CPU: 8.5e-3)
+MKL_FEATURE_RTOL = 5e-3      # PrimalMKL's mean against float64's (CPU: 5.0e-4)
+PRIMAL_OUTER = 3         # PrimalMKL's alternations (10 by default)
+PRIMAL_WEIGHT_ATOL = 1e-3    # CPU: 1.1e-150
+SGCP_LAM, SGCP_GAMMA = 4000.0, 0.15
+SGCP_INDUCING, SGCP_INTEGRATION, SGCP_STEPS, SGCP_T = 256, 4096, 500, 1024
+SGCP_NEWTON = 5          # the linear response's Newton steps (20 by default)
+SGCP_TRUE_RTOL = 0.1     # the integrated mean rate against the truth (CPU: 3.8e-2)
+SGCP_F64_RTOL = 1e-4     # ... against the float64 model's (CPU: 3.1e-6)
+SGCP_BAND_RTOL = 0.02    # the bands against the float64 model's (CPU: 2.5e-3)
+TMG_D, TMG_SAMPLES = 32, 2000
+TMG_F64_SAMPLES = 200    # the float64 run's samples, held to the f32 ones
+TMG_MEAN_ATOL = 0.1      # in units of each coordinate's σ
+EP_SITES, EP_D, EP_SIGMA, EP_SWEEPS = 512, 16, 0.5, 6
+EP_RTOL = 1e-3           # against the conjugate posterior (CPU: f32 1.1e-4, float64 6.3e-5)
+MIX_N, MIX_D, MIX_T, MIX_DRAWS = 2048, 2, 256, 20
+MIX_GAMMAS = (0.3, 0.6, 1.2)
+MIX_MEAN_ATOL = 1e-5      # absolute, |y| ≲ 1.3 (CPU: 2.6e-7)
+TRACE_N, TRACE_M = 4096, 8
+TRACE_MEAN_RTOL = 1e-4    # CPU: 4.7e-6
+TRACE_SD_RTOL = 0.1       # CPU: 2.3e-2 (the f32 V⁻¹ at the ridge λs² = 1e-4)
+CONVEX_N, CONVEX_M = 256, 16
+CONVEX_RTOL = 0.02        # CPU: 2.9e-3
+LIK_N, LIK_D = 4096, 8
+LIK_RTOL = 1e-4          # CPU: 3.7e-6
+
+
+def model_kernel(dev, dtype, name, gamma, d, nu=1.5):
+    """A one-atom kernel of `dtype` on `dev`; float64 on its plain atom, as
+    the float64 reference models are (`plain64_atoms`)."""
+    k = KernelFunction(kernel_name=name, gamma=gamma, nu=nu, d=d, device=dev,
+                       dtype=dtype)
+    return plain64_atoms(k) if dtype == torch.float64 else k
+
+
+def synced(fn):
+    """(fn(), wall in s up to a synchronize of the card, if any)."""
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def mkl_data(dev):
+    """19.1's data (numpy seed 19): x, xt uniform in [-1, 1]^4, y a draw of
+    MKL_ATOMS[MKL_DRAW] at x (float64 Gram + 1e-8 I, its Cholesky times
+    numpy normals) plus N(0, MKL_NOISE²); float64 tensors on `dev`."""
+    rng = np.random.default_rng(19)
+    x = torch.as_tensor(rng.uniform(-1, 1, (MKL_N, MKL_D)), device=dev)
+    xt = torch.as_tensor(rng.uniform(-1, 1, (MKL_T, MKL_D)), device=dev)
+    name, g, nu = MKL_ATOMS[MKL_DRAW]
+    K = model_kernel(dev, torch.float64, name, g, MKL_D, nu).gram(x)
+    K.diagonal().add_(1e-8)
+    f = torch.linalg.cholesky(K) @ torch.as_tensor(
+        rng.standard_normal(MKL_N), device=dev)
+    y = f + MKL_NOISE * torch.as_tensor(rng.standard_normal(MKL_N),
+                                        device=dev)
+    return x, y[:, None], xt
+
+
+def mkl_learner(dev, dtype):
+    return MultipleKernelLearner(
+        [model_kernel(dev, dtype, name, g, MKL_D, nu)
+         for name, g, nu in MKL_ATOMS], device=dev, dtype=dtype)
+
+
+def mkl_embeddings(dev, dtype):
+    return [RFFEmbedding(gamma=g, m=MKL_FEATURES, d=MKL_D, kernel=kern,
+                         seed=i, device=dev, dtype=dtype)
+            for i, (kern, g) in enumerate((("squared_exponential", 0.5),
+                                           ("squared_exponential", 0.8),
+                                           ("laplace", 1.0)))]
+
+
+def mkl_fits(dev, x, y, xt):
+    """19.1's models in f32 and float64: the learner's α, mean and std on
+    xt; the group-lasso MKL's weights and mean; PrimalMKL's weights and
+    mean. Returns {dtype: {...}} and the f32 runs' walls and launches."""
+    out, runs = {}, {}
+    for dt in (torch.float32, torch.float64):
+        rec = {}
+        lrn = mkl_learner(dev, dt)
+        xd, yd, xtd = x.to(dt), y.to(dt), xt.to(dt)
+        _, runs_fit = counted_on(dev, lambda: lrn.fit_gp(xd, yd))
+        (mu, sd), runs_ms = counted_on(dev, lambda: lrn.mean_std(xtd))
+        rec.update(alphas=lrn.alphas.double().cpu(), mu=mu[:, 0].double(),
+                   sd=sd[:, 0].double())
+        feat = MKL(mkl_embeddings(dev, dt), lam=MKL_FEATURE_LAM,
+                   s=MKL_FEATURE_S)
+        _, runs_feat = counted_on(dev, lambda: feat.fit_gp(xd, yd))
+        rec.update(feature_weights=feat.weights.double().cpu(),
+                   feature_theta=feat.theta[:, 0].double(),
+                   feature_mu=feat.mean_var(xtd)[0][:, 0].double())
+        primal = PrimalMKL(mkl_embeddings(dev, dt), lam=MKL_FEATURE_LAM,
+                           s=MKL_FEATURE_S)
+        _, runs_primal = counted_on(
+            dev, lambda: primal.fit_gp(xd, yd, outer_steps=PRIMAL_OUTER))
+        rec.update(primal_weights=primal.weights.double().cpu(),
+                   primal_mu=primal.mean_var(xtd)[0][:, 0].double())
+        out[dt] = rec
+        if dt == torch.float32:
+            runs = {"fit": runs_fit, "mean_std": runs_ms,
+                    "feature_fit": runs_feat, "primal_fit": runs_primal}
+    return out, runs
+
+
+def counted_on(dev, fn):
+    """fn() with the launch counters zeroed before and read after, and its
+    wall: (result, {"wall_s", "launches"}); on the CPU the counts stay 0."""
+    reset_launch_counts()
+    out, wall = synced(fn)
+    return out, {"wall_s": wall, "launches": nonzero(launch_counts())}
+
+
+def rel_gap(a, b):
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def group_lasso_objective(dev, x, y, theta):
+    """The group-lasso MKL's objective ½‖Qθ − y‖²/s² + λΣ‖θ_g‖ in float64
+    (Q of the float64 embeddings)."""
+    Q = torch.cat([e.embed(x) for e in mkl_embeddings(dev, torch.float64)],
+                  dim=1)
+    r = Q @ theta - y[:, 0]
+    groups = theta.reshape(len(MKL_ATOMS), MKL_FEATURES)
+    return float(0.5 * (r @ r) / MKL_FEATURE_S**2
+                 + MKL_FEATURE_LAM * torch.linalg.vector_norm(groups, dim=1)
+                 .sum())
+
+
+def mkl_gaps(fits, dev=None, x=None, y=None):
+    f32, f64 = fits[torch.float32], fits[torch.float64]
+    obj = {} if dev is None else {"feature_obj_gap": (
+        group_lasso_objective(dev, x, y, f32["feature_theta"])
+        / group_lasso_objective(dev, x, y, f64["feature_theta"]) - 1.0)}
+    return {**obj,
+        "alpha_gap": float((f32["alphas"] - f64["alphas"]).abs().max()),
+        "mean_gap": rel_gap(f32["mu"], f64["mu"]),
+        "feature_gap": rel_gap(f32["feature_mu"], f64["feature_mu"]),
+        "primal_weight_gap": float(
+            (f32["primal_weights"] - f64["primal_weights"]).abs().max()),
+        "primal_gap": rel_gap(f32["primal_mu"], f64["primal_mu"]),
+        "choice32": int(torch.argmax(f32["alphas"])),
+        "choice64": int(torch.argmax(f64["alphas"])),
+    }
+
+
+def mkl_kernel_checks(x, xt):
+    """gram and gram_l1 at 19.1's shapes (its Grams K(x, x) and cross Grams
+    K(xt, x), d = 4) against their plain versions, timed in turns against
+    their bounds."""
+    errs, times, bounds = {"gram": 0.0, "gram_l1": 0.0}, {}, {}
+    xf, xtf = x.float(), xt.float()
+    for name, g, nu in MKL_ATOMS:
+        for label, a in (("K(x, x)", xf), ("K(xt, x)", xtf)):
+            if name == "laplace":
+                errs["gram_l1"] = max(errs["gram_l1"], gram_l1_check(
+                    f"19.1 {label}", a, xf, g))
+            else:
+                fam = "se" if name == "squared_exponential" else "matern"
+                errs["gram"] = max(errs["gram"], scaled_gram_check(
+                    f"19.1 {label}", a / g, xf / g, fam, nu))
+    n, d = MKL_N, MKL_D
+    times["gram"] = timed_pair(
+        lambda: gram_scaled(xf / 0.5, xf / 0.5, 1.0, "se"),
+        lambda: gram_plain(xf / 0.5, xf / 0.5, 1.0, "se"))
+    times["gram_l1"] = timed_pair(lambda: gram_l1(xf, xf, 1.0, 1.0),
+                                  lambda: gram_l1_plain(xf, xf, 1.0, 1.0))
+    b = gram_bounds(n, n, d)
+    bounds = {"gram": b["gram"], "gram_l1": b["gram_l1"]}
+    for k in ("gram", "gram_l1"):
+        print(f"    {k} at 19.1's K(x, x), {n}x{n} d={d}: kernel "
+              f"{times[k][0]!r} ms, plain {times[k][1]!r} ms, bound "
+              f"{bounds[k][0]!r} ms ({bounds[k][1]})")
+    return errs, times, bounds
+
+
+def mkl_run(dev):
+    """19.1's f32 and float64 models and their gaps (no bars)."""
+    x, y, xt = mkl_data(dev)
+    fits, runs = mkl_fits(dev, x, y, xt)
+    return {"alphas_f32": [float(a) for a in fits[torch.float32]["alphas"]],
+            "alphas_f64": [float(a) for a in fits[torch.float64]["alphas"]],
+            **mkl_gaps(fits, dev, x, y), **runs}, (x, xt)
+
+
+def mkl_phase(dev):
+    """19.1: MultipleKernelLearner on SE(0.5) + Matérn-3/2(0.8) +
+    Laplace(1.0) at n = 4096, d = 4, default lam and s, 300 EG steps, then
+    mean_std at 1024 points; the group-lasso MKL and PrimalMKL on three
+    RFF embeddings of 256 features; f32 against float64."""
+    rec, (x, xt) = mkl_run(dev)
+    a32, a64 = rec["alphas_f32"], rec["alphas_f64"]
+    print(f"  19.1 MultipleKernelLearner, n = {MKL_N}, d = {MKL_D}, y a draw "
+          f"of {MKL_ATOMS[MKL_DRAW][0]}: α f32 {a32} against float64 {a64} "
+          f"(max gap {rec['alpha_gap']!r}, bar {MKL_ALPHA_ATOL}); the "
+          f"largest α on atom {rec['choice32']} (f32) / {rec['choice64']} "
+          f"(float64), drawn from {MKL_DRAW}; mean on {MKL_T} points "
+          f"{rec['mean_gap']!r} of max|μ64| (bar {MKL_MEAN_RTOL}); fit "
+          f"{rec['fit']['wall_s']!r} s, launches {rec['fit']['launches']}; "
+          f"mean_std {rec['mean_std']['wall_s']!r} s, launches "
+          f"{rec['mean_std']['launches']}")
+    print(f"  19.1 MKL (group lasso, 3 x {MKL_FEATURES} RFF features): its "
+          f"objective at the f32 fit {rec['feature_obj_gap']!r} relative "
+          f"above the float64 fit's (bar {MKL_FEATURE_OBJ_RTOL}); mean "
+          f"{rec['feature_gap']!r} of max|μ64| (printed: FISTA's 1000 "
+          f"iterations do not converge here, and its paths part), fit "
+          f"{rec['feature_fit']['wall_s']!r} s; PrimalMKL ({PRIMAL_OUTER} "
+          f"alternations): weights {rec['primal_weight_gap']!r} (bar "
+          f"{PRIMAL_WEIGHT_ATOL}), mean {rec['primal_gap']!r} (bar "
+          f"{MKL_FEATURE_RTOL}), fit {rec['primal_fit']['wall_s']!r} s")
+    assert rec["choice64"] == MKL_DRAW, a64
+    assert rec["alpha_gap"] <= MKL_ALPHA_ATOL, rec
+    assert rec["mean_gap"] <= MKL_MEAN_RTOL, rec
+    assert abs(rec["feature_obj_gap"]) <= MKL_FEATURE_OBJ_RTOL, rec
+    assert rec["primal_weight_gap"] <= PRIMAL_WEIGHT_ATOL, rec
+    assert rec["primal_gap"] <= MKL_FEATURE_RTOL, rec
+    assert rec["fit"]["launches"].get("gram", 0) > 0, rec["fit"]
+    assert rec["fit"]["launches"].get("gram_l1", 0) > 0, rec["fit"]
+    assert rec["mean_std"]["launches"].get("gram_l1", 0) > 0, rec["mean_std"]
+    errs, times, bounds = mkl_kernel_checks(x, xt)
+    return {**rec, "kernels": {
+        k: {"max_abs_err": errs[k], "ms": times[k][0],
+            "plain_ms": times[k][1], "bound_ms": bounds[k][0],
+            "bound_by": bounds[k][1]} for k in errs}}
+
+
+def sgcp_rate(x):
+    """The known sigmoidal Cox rate on the unit square: λ σ(3 sin 2πx₀ ·
+    cos 2πx₁), λ = SGCP_LAM (its integral is λ/2)."""
+    return SGCP_LAM * torch.sigmoid(3.0 * torch.sin(2 * math.pi * x[:, 0])
+                                    * torch.cos(2 * math.pi * x[:, 1]))
+
+
+def sgcp_model(dev, dt, obs):
+    S = BorelSet(2, [[0.0, 1.0], [0.0, 1.0]], device=dev, dtype=dt)
+    k = model_kernel(dev, dt, "squared_exponential", SGCP_GAMMA, 2)
+    return S, SGCPVariational(k, S, obs.to(dt), num_inducing=SGCP_INDUCING,
+                              num_integration=SGCP_INTEGRATION, device=dev)
+
+
+def sgcp_run(dev):
+    """19.2's f32 and float64 fits, bands and gaps (no bars)."""
+    S64 = BorelSet(2, [[0.0, 1.0], [0.0, 1.0]], device=dev,
+                   dtype=torch.float64)
+    proc = PoissonPointProcess(d=2, B=SGCP_LAM, b=0.0, rate=sgcp_rate)
+    g = torch.Generator(device=dev).manual_seed(19)
+    obs = proc.sample_thinning(g, S64)
+    truth = proc.rate_volume(S64)
+    xt = S64.return_discretization(32)
+    rec, res = {}, {}
+    for dt in (torch.float32, torch.float64):
+        (S, sg), build = counted_on(dev, lambda: sgcp_model(dev, dt, obs))
+        elbo, fit = counted_on(dev, lambda: sg.run(steps=SGCP_STEPS))
+        w, nodes = S.return_legendre_discretization(64)
+        total = float(w @ sg.mean_rate_points(nodes))
+        bands, exact = counted_on(dev, lambda: sg.rate_bands_exact(xt))
+        lr, lin = counted_on(dev, lambda: sg.rate_bands_linear_response(
+            xt, newton_steps=SGCP_NEWTON))
+        res[dt] = {"total": total, "bands": [b.double() for b in bands],
+                   "lr": [b.double() for b in lr],
+                   "mean": sg.mean_rate_points(xt).double()}
+        if dt == torch.float32:
+            rec = {"events": int(obs.shape[0]), "elbo": elbo, "build": build,
+                   "fit": fit, "exact_bands": exact, "linear_response": lin,
+                   "shapes": (obs.double(), sg.int_x.double(),
+                              sg.Z.double(), xt.double())}
+    f32, f64 = res[torch.float32], res[torch.float64]
+    lo, hi = f32["bands"]
+    return {**rec, "true_total": truth, "total_f32": f32["total"],
+            "total_f64": f64["total"],
+            "total_vs_true": abs(f32["total"] - truth) / truth,
+            "total_vs_f64": abs(f32["total"] - f64["total"]) / f64["total"],
+            "exact_band_gap": max(rel_gap(a, b) for a, b in
+                                  zip(f32["bands"], f64["bands"])),
+            "lr_band_gap": max(rel_gap(a, b) for a, b in
+                               zip(f32["lr"], f64["lr"])),
+            "mean_inside_band": bool((lo <= f32["mean"] + 1e-6).all()
+                                     and (f32["mean"] <= hi + 1e-6).all())}
+
+
+def sgcp_phase(dev):
+    """19.2: the known sigmoidal Cox rate on the unit square, events by the
+    port's PoissonPointProcess (thinning, generator seeded 19), an SGCP with
+    16² inducing points and 64² quadrature nodes, 500 Adam steps, then the
+    exact and the linear-response bands on a 32² grid; f32 against
+    float64, the integrated rate against the truth."""
+    rec = sgcp_run(dev)
+    print(f"  19.2 SGCP: {rec['events']} events, ∫λ true "
+          f"{rec['true_total']!r}, fitted (f32) {rec['total_f32']!r} (rel "
+          f"{rec['total_vs_true']!r}, bar {SGCP_TRUE_RTOL}), float64 "
+          f"{rec['total_f64']!r} (rel {rec['total_vs_f64']!r}, bar "
+          f"{SGCP_F64_RTOL}); {SGCP_STEPS} Adam steps {rec['fit']['wall_s']!r}"
+          f" s; exact bands {rec['exact_bands']['wall_s']!r} s, gap "
+          f"{rec['exact_band_gap']!r}; linear-response bands "
+          f"{rec['linear_response']['wall_s']!r} s, gap {rec['lr_band_gap']!r}"
+          f" (bar {SGCP_BAND_RTOL}); mean inside the exact band: "
+          f"{rec['mean_inside_band']}; launches {rec['fit']['launches']}")
+    assert rec["total_vs_true"] <= SGCP_TRUE_RTOL, rec
+    assert rec["total_vs_f64"] <= SGCP_F64_RTOL, rec
+    assert rec["exact_band_gap"] <= SGCP_BAND_RTOL, rec
+    assert rec["lr_band_gap"] <= SGCP_BAND_RTOL, rec
+    assert rec["mean_inside_band"]
+    # the f32 model's Grams are its double-float Grams (the f32 factor of
+    # Kzz fails): held to their plain version at the build's shapes
+    assert rec["build"]["launches"].get("gram_df", 0) > 0, rec["build"]
+    assert rec["exact_bands"]["launches"].get("gram_df", 0) > 0, rec
+    obs, int_x, Z, xt = rec.pop("shapes")
+    err = 0.0
+    for label, a in (("K(events, Z)", obs), ("K(nodes, Z)", int_x),
+                     ("K(Z, Z)", Z), ("K(xt, Z)", xt)):
+        e, hi, lo = gram_df_check(f"19.2 {label}", a, Z, "se", 1.5,
+                                  SGCP_GAMMA)
+        err = max(err, e)
+        del hi, lo
+    return {**rec, "gram_df_max_abs_err": err}
+
+
+def tmg_truth(mu, sd):
+    """Means of N(μ, σ²) truncated to [0, ∞): μ + σ φ(α)/(1 − Φ(α)),
+    α = −μ/σ (float64)."""
+    a = -mu / sd
+    phi = torch.exp(-0.5 * a * a) / math.sqrt(2 * math.pi)
+    return mu + sd * phi / (1.0 - torch.special.ndtr(a))
+
+
+def tmg_run(dev):
+    """19.3's samples in f32 and float64 and their errors (no bars)."""
+    mu = torch.linspace(-1.0, 1.0, TMG_D, dtype=torch.float64, device=dev)
+    sd = torch.linspace(0.5, 2.0, TMG_D, dtype=torch.float64, device=dev)
+    F, gw = torch.eye(TMG_D), torch.zeros(TMG_D)
+    out = {}
+    for dt, n in ((torch.float32, TMG_SAMPLES),
+                  (torch.float64, TMG_F64_SAMPLES)):
+        g = torch.Generator(device=dev).manual_seed(19)
+        out[dt] = counted_on(dev, lambda: tmg_sample(
+            g, n, mu, torch.diag(sd * sd), F, gw, sd, device=dev, dtype=dt))
+    xs, run = out[torch.float32]
+    return {"wall_s": run["wall_s"], "min": float(xs.min()),
+            "mean_err_sigma": float(((xs.double().mean(0)
+                                      - tmg_truth(mu, sd)).abs() / sd).max()),
+            "gap_f64": rel_gap(xs[:TMG_F64_SAMPLES].double(),
+                               out[torch.float64][0])}
+
+
+def tmg_phase(dev):
+    """19.3: exact-HMC samples of a diagonal Gaussian (d = 32, μ from −1 to
+    1, σ from 0.5 to 2) truncated to the positive orthant; the f32 samples'
+    marginal means against the closed form, and against the float64 run's
+    samples from the same generator."""
+    rec = tmg_run(dev)
+    print(f"  19.3 tmg: {TMG_SAMPLES} samples, d = {TMG_D}, positive orthant: "
+          f"{rec['wall_s']!r} s; marginal means within "
+          f"{rec['mean_err_sigma']!r} σ of the truncated normal's (bar "
+          f"{TMG_MEAN_ATOL}); least coordinate {rec['min']!r} (bar −1e-9); "
+          f"the first {TMG_F64_SAMPLES} f32 samples {rec['gap_f64']!r} from "
+          f"the float64 run's (bar 1e-6)")
+    assert rec["min"] >= -1e-9, rec     # on a wall, to rounding
+    assert rec["mean_err_sigma"] <= TMG_MEAN_ATOL, rec
+    assert rec["gap_f64"] <= 1e-6, rec
+    return rec
+
+
+def ep_run(dev):
+    """19.4 EP's posteriors in f32 and float64 against the conjugate one
+    (no bars)."""
+    rng = np.random.default_rng(19)
+    A = rng.standard_normal((EP_SITES, EP_D)) / math.sqrt(EP_D)
+    theta = rng.standard_normal(EP_D)
+    y = A @ theta + EP_SIGMA * rng.standard_normal(EP_SITES)
+    S_ref = np.linalg.inv(np.eye(EP_D) + A.T @ A / EP_SIGMA**2)
+    m_ref = S_ref @ (A.T @ y / EP_SIGMA**2)
+
+    def site(z, datum):
+        return torch.exp(-0.5 * (z - datum) ** 2 / EP_SIGMA**2)
+
+    out = {}
+    for dt in (torch.float32, torch.float64):
+        ep = ExpectedPropagationQuadratic(np.zeros(EP_D), np.eye(EP_D), site,
+                                          list(y), A=A, device=dev, dtype=dt)
+        (m, S_), run = counted_on(dev, lambda: ep.fit_gp(iterations=EP_SWEEPS))
+        out[dt] = (max(float(np.abs(m.double().cpu().numpy() - m_ref).max()
+                             / np.abs(m_ref).max()),
+                       float(np.abs(S_.double().cpu().numpy() - S_ref).max()
+                             / np.abs(S_ref).max())), run["wall_s"])
+    return {"wall_s": out[torch.float32][1], "err_f32": out[torch.float32][0],
+            "err_f64": out[torch.float64][0]}
+
+
+def ep_phase(dev):
+    """19.4 EP: 512 Gaussian sites a_iᵀθ in d = 16 (numpy seed 19), prior
+    N(0, I), EP_SWEEPS sweeps; f32 and float64 against the conjugate
+    posterior."""
+    rec = ep_run(dev)
+    print(f"  19.4 EP, {EP_SITES} sites, d = {EP_D}, {EP_SWEEPS} sweeps: "
+          f"posterior {rec['err_f32']!r} (f32) / {rec['err_f64']!r} (float64)"
+          f" from the conjugate one (bar {EP_RTOL}), {rec['wall_s']!r} s")
+    assert rec["err_f32"] <= EP_RTOL and rec["err_f64"] <= EP_RTOL, rec
+    return rec
+
+
+def mixtures_run(dev):
+    """19.4's mixtures in f32 and float64 on the same draws (no bars)."""
+    rng = np.random.default_rng(19)
+    x = rng.uniform(-1, 1, (MIX_N, MIX_D))
+    y = np.sin(3 * x[:, :1]) * np.cos(2 * x[:, 1:]) \
+        + 0.1 * rng.standard_normal((MIX_N, 1))
+    xt = rng.uniform(-1, 1, (MIX_T, MIX_D))
+    rec = {}
+    for cls in (DirichletMixture, CategoricalMixture):
+        res = {}
+        for dt in (torch.float32, torch.float64):
+            gps = [GaussianProcess(kernel=model_kernel(
+                dev, dt, "squared_exponential", g, MIX_D), s=0.1, d=MIX_D)
+                for g in MIX_GAMMAS]
+            mix = cls(gps, generator=torch.Generator(device=dev).manual_seed(
+                19), device=dev, dtype=dt)
+            mix.fit_gp(x, y)
+            (mu, sd), run = counted_on(dev, lambda: mix.mean_var(
+                xt, N=MIX_DRAWS))
+            choice = mix.map_model() if cls is CategoricalMixture else None
+            res[dt] = (mu[:, 0].double(), sd[:, 0].double(), run, choice)
+        (mu, sd, run, c32), (mu64, _, _, c64) = res[torch.float32], \
+            res[torch.float64]
+        rec[cls.__name__] = {
+            **run, "mean_gap": float((mu - mu64).abs().max()),
+            "finite": bool(torch.isfinite(mu).all() and
+                           torch.isfinite(sd).all()),
+            "sd_range": [float(sd.min()), float(sd.max())],
+            "map_model": [c32, c64]}
+    return rec
+
+
+def mixtures_phase(dev):
+    """19.4 mixtures: DirichletMixture and CategoricalMixture of three SE
+    GPs at n = 2048, d = 2 (numpy seed 19), MIX_DRAWS draws at 256 points
+    from generators seeded 19; f32 against float64 on the same draws."""
+    rec = mixtures_run(dev)
+    for name, r in rec.items():
+        print(f"  19.4 {name}: {MIX_DRAWS} draws at {MIX_T} points "
+              f"{r['wall_s']!r} s, launches {r['launches']}; mean "
+              f"{r['mean_gap']!r} from float64's on the same draws (bar "
+              f"{MIX_MEAN_ATOL}); sd in {r['sd_range']}; map_model (f32, "
+              f"float64) {r['map_model']}")
+        assert r["finite"] and r["mean_gap"] <= MIX_MEAN_ATOL, r
+        assert r["map_model"][0] == r["map_model"][1], r
+        # the draws' moments factor in float64 on the f32 model's
+        # double-float Grams, held to their plain version at its shapes
+        assert r["launches"].get("gram_df", 0) > 0, r
+    rng = np.random.default_rng(19)      # mixtures_run's points
+    x = torch.as_tensor(rng.uniform(-1, 1, (MIX_N, MIX_D)), device=dev)
+    rng.standard_normal((MIX_N, 1))
+    xt = torch.as_tensor(rng.uniform(-1, 1, (MIX_T, MIX_D)), device=dev)
+    err = 0.0
+    for g in MIX_GAMMAS:
+        for label, a in (("K(x, x)", x), ("K(xt, x)", xt)):
+            e, hi, lo = gram_df_check(f"19.4 mixtures {label}", a, x, "se",
+                                      1.5, g)
+            err = max(err, e)
+            del hi, lo
+    return {**rec, "gram_df_max_abs_err": err}
+
+
+def gamma_phase(dev):
+    """19.4 GammaContProcess: bench.py's data (n = ntest = 16384, d = 8, SE
+    γ = 0.5, s = 0.1), single tier, against the float64 posterior."""
+    x, y, xt = bench_data(dev)
+    mu64, var64, _ = reference_f64(x, y, xt)
+    gp = GammaContProcess(gamma=GAMMA, s=S, d=D, device=dev)
+    (mu, sd), run = counted_on(dev, lambda: (gp.fit_gp(x, y),
+                                             gp.mean_var(xt))[1])
+    m, vmax, vmed = posterior_errors(mu, sd, mu64, var64)
+    rate = gp.get_gamma(N)
+    print(f"  19.4 GammaContProcess, n = ntest = {N}: fit + mean_var "
+          f"{run['wall_s']!r} s, launches {run['launches']}; mean {m!r} (bar "
+          f"{SINGLE_MEAN_RTOL}), var max {vmax!r} (bar {VAR_MAX_RTOL}) median "
+          f"{vmed!r}; γ(n) = {rate!r}")
+    assert m <= SINGLE_MEAN_RTOL and vmax <= VAR_MAX_RTOL, (m, vmax)
+    assert rate > 0 and run["launches"].get("gram", 0) > 0, run
+    del x, y, xt, mu64, var64, mu, sd
+    torch.cuda.empty_cache()
+    return {**run, "mean_err": m, "var_max_err": vmax, "var_median_err": vmed}
+
+
+def trace_convex_models(dev, dt):
+    """TraceFeatures (Hermite m = 8, d = 1, y = ΦᵀAΦ of the reference
+    test's A at n = TRACE_N) and ConvexRKHS (Hermite m = 16, y = x², n =
+    CONVEX_N), numpy seed 19, fitted; (trace, x_trace, convex, x_convex)."""
+    rng = np.random.default_rng(19)
+    xa = rng.uniform(-1, 1, (TRACE_N, 1))
+    emb = HermiteEmbedding(gamma=0.6, m=TRACE_M, d=1, device=dev, dtype=dt)
+    Phi = emb.embed(torch.as_tensor(xa, device=dev, dtype=dt)).double()
+    A = torch.diag(torch.tensor([1.0, -0.5] + [0.0] * (TRACE_M - 2),
+                                dtype=torch.float64, device=dev))
+    ya = torch.einsum("ij,jk,ik->i", Phi, A, Phi)[:, None]
+    tf = TraceFeatures(embedding=emb, m=TRACE_M, s=0.1, lam=0.01)
+    xc = rng.uniform(-1, 1, (CONVEX_N, 1))
+    cr = ConvexRKHS(HermiteEmbedding(gamma=0.8, m=CONVEX_M, d=1, device=dev,
+                                     dtype=dt), m=CONVEX_M, lam=1e-3, s=0.1)
+    cr.fit_gp(xc, xc**2)
+    return tf, xa, ya, cr, xc
+
+
+def trace_convex_run(dev):
+    """19.4's TraceFeatures and ConvexRKHS fits in f32 and float64 and
+    their gaps (no bars)."""
+    res = {}
+    for dt in (torch.float32, torch.float64):
+        tf, xa, ya, cr, xc = trace_convex_models(dev, dt)
+        _, trun = counted_on(dev, lambda: tf.fit_gp(xa, ya.to(dt)))
+        mu_t, sd_t = tf.mean_std(xa)
+        _, crun = counted_on(dev, lambda: cr.optimize_params(restarts=2,
+                                                             maxiter=30))
+        res[dt] = (mu_t[:, 0].double(), sd_t[:, 0].double(),
+                   cr.mean(xc)[:, 0].double(), trun, crun)
+    (mt, st, mc, trun, crun), (mt64, st64, mc64, _, _) = \
+        res[torch.float32], res[torch.float64]
+    return {"trace_fit_s": trun["wall_s"], "convex_fit_s": crun["wall_s"],
+            "trace_mean_gap": rel_gap(mt, mt64),
+            "trace_sd_gap": rel_gap(st, st64),
+            "convex_mean_gap": rel_gap(mc, mc64)}
+
+
+def trace_convex_phase(dev):
+    """19.4 TraceFeatures (n = 4096) and ConvexRKHS (n = 256, two metric
+    restarts of 30 L-BFGS iterations, generator seeded 1): f32 against
+    float64."""
+    rec = trace_convex_run(dev)
+    print(f"  19.4 TraceFeatures, n = {TRACE_N}, m = {TRACE_M}: fit "
+          f"{rec['trace_fit_s']!r} s, mean {rec['trace_mean_gap']!r} (bar "
+          f"{TRACE_MEAN_RTOL}), sd {rec['trace_sd_gap']!r} (bar "
+          f"{TRACE_SD_RTOL}) of float64's; "
+          f"ConvexRKHS, n = {CONVEX_N}: metric fit {rec['convex_fit_s']!r} s,"
+          f" mean {rec['convex_mean_gap']!r} of float64's (bar "
+          f"{CONVEX_RTOL})")
+    assert rec["trace_mean_gap"] <= TRACE_MEAN_RTOL, rec
+    assert rec["trace_sd_gap"] <= TRACE_SD_RTOL, rec
+    assert rec["convex_mean_gap"] <= CONVEX_RTOL, rec
+    return rec
+
+
+LIKELIHOODS = (
+    ("GaussianLikelihood", {"sigma": 0.3}, "real"),
+    ("PoissonLikelihoodCanonical", {}, "count"),
+    ("BernoulliLikelihoodCanonical", {}, "binary"),
+    ("LaplaceLikelihood", {"b": 0.2}, "real"),
+    ("HuberLikelihood", {"sigma": 0.1, "delta": 1.0}, "real"),
+    ("WeibullLikelihoodCanonical", {"kk": 1.5}, "positive"),
+    ("RobustGraphicalLikelihood", {"coin": 0.1, "supp": 2.0, "sigma": 0.2},
+     "real"),
+)
+
+
+def likelihood_run(dev):
+    """19.4's likelihoods in f32 and float64 and their gaps (no bars)."""
+    rng = np.random.default_rng(19)
+    X = rng.uniform(-1, 1, (LIK_N, LIK_D)) / math.sqrt(LIK_D)
+    th = rng.standard_normal(LIK_D)
+    s = X @ th
+    ys = {"real": s + 0.1 * rng.standard_normal(LIK_N),
+          "count": rng.poisson(np.exp(s)).astype(float),
+          "binary": rng.binomial(1, 1 / (1 + np.exp(-s))).astype(float),
+          "positive": np.exp(s) * rng.weibull(1.5, LIK_N)}
+    gaps = {}
+    t0 = time.perf_counter()
+    for name, kw, kind in LIKELIHOODS:
+        vals = {}
+        for dt in (torch.float32, torch.float64):
+            lik = getattr(probability, name)(device=dev, dtype=dt, **kw)
+            lik.load_data((X, ys[kind]))
+            theta = torch.as_tensor(th, device=dev, dtype=dt).requires_grad_()
+            f = lik.get_objective()(theta)
+            (gr,) = torch.autograd.grad(f, theta)
+            cs = lik.get_confidence_set(theta.detach())
+            vals[dt] = (f.detach().double(), gr.double(), cs.L.double())
+        gaps[name] = max(rel_gap(a, b) for a, b in zip(vals[torch.float32],
+                                                       vals[torch.float64]))
+    return {"wall_s": time.perf_counter() - t0, "gaps": gaps,
+            "worst": max(gaps.values())}
+
+
+def likelihood_phase(dev):
+    """19.4 likelihoods: each likelihood's objective, its gradient (autograd)
+    and its default confidence set (√V) at n = 4096, d = 8 (numpy seed 19)
+    at the true θ; f32 against float64."""
+    rec = likelihood_run(dev)
+    print(f"  19.4 likelihoods at n = {LIK_N}, d = {LIK_D}: objective, "
+          f"gradient and √V within {rec['worst']!r} of float64's (bar "
+          f"{LIK_RTOL}; {rec['gaps']}), {rec['wall_s']!r} s")
+    assert rec["worst"] <= LIK_RTOL, rec
+    return rec
+
+
+def phase19(dev):
+    """Phase 19's sub-phases: {name: record}, with each one's wall."""
+    out, walls = {}, {}
+    for name, fn in (("19.1 mkl", mkl_phase), ("19.2 sgcp", sgcp_phase),
+                     ("19.3 tmg", tmg_phase), ("19.4 ep", ep_phase),
+                     ("19.4 mixtures", mixtures_phase),
+                     ("19.4 gamma_process", gamma_phase),
+                     ("19.4 trace_convex", trace_convex_phase),
+                     ("19.4 likelihoods", likelihood_phase)):
+        out[name], walls[name] = synced(lambda: fn(dev))
+    print(f"  phase 19 walls (s): {walls}; in all {sum(walls.values())!r} s")
+    return out, walls
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
@@ -5162,6 +5805,24 @@ def main(argv=None) -> int:
               **{f"{name}_fit": rec["fit_s"]
                  for name, rec in phase18["estimators"].items()}}
 
+    print("== phase 19: approximate inference, MKL and the rest of the "
+          "point-process stack (MultipleKernelLearner, MKL, PrimalMKL, the "
+          "SGCP, tmg, EP, the mixtures, GammaContProcess, TraceFeatures, "
+          "ConvexRKHS, the likelihoods), f32 against float64 on the card")
+    phase19_rec, phase19_walls = phase19(dev)
+    torch.cuda.empty_cache()
+    mkl19, sgcp19 = phase19_rec["19.1 mkl"], phase19_rec["19.2 sgcp"]
+    sub_counts19 = {
+        "19.1 fit": mkl19["fit"]["launches"],
+        "19.1 mean_std": mkl19["mean_std"]["launches"],
+        "19.2 build": sgcp19["build"]["launches"],
+        "19.2 exact bands": sgcp19["exact_bands"]["launches"],
+        "19.2 linear-response bands": sgcp19["linear_response"]["launches"],
+        **{f"19.4 {name}": phase19_rec["19.4 mixtures"][name]["launches"]
+           for name in ("DirichletMixture", "CategoricalMixture")},
+        "19.4 GammaContProcess": phase19_rec["19.4 gamma_process"]["launches"]}
+    walls |= {f"phase19 {k}": v for k, v in phase19_walls.items()}
+
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": REPLACES[name][0],
          "replaces": REPLACES[name][1], "tier": launches[name][0],
@@ -5177,6 +5838,10 @@ def main(argv=None) -> int:
                               if c.get(name)},
          "phase18_launches": {sub: c[name] for sub, c in sub_counts18.items()
                               if c.get(name)},
+         "phase19_launches": {sub: c[name] for sub, c in sub_counts19.items()
+                              if c.get(name)},
+         **({"phase19_shapes": mkl19["kernels"][name]}
+            if name in mkl19["kernels"] else {}),
          **({"l1_family": {
              "max_abs_err": l1_err, "ms": l1_times[0], "plain_ms": l1_times[1],
              "bound_ms": l1_bound[0], "bound_by": l1_bound[1],
@@ -5227,7 +5892,7 @@ def main(argv=None) -> int:
         "exact_hyperfit": {"config1": fit_se, "config1_laplace": fit_laplace,
                            "ard_4096": fit_ard, "sample_256": sampled},
         "phase15": phase15, "phase16": phase16, "phase17": phase17,
-        "phase18": phase18}
+        "phase18": phase18, "phase19": phase19_rec}
     print(json.dumps(record))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,8 @@
 """Carry hyperparameters and fitted state (exact GP, iterative GP, online
 GP, embeddings, feature GPs, Nyström features, positive bases, Poisson,
-link, log-linear, MBR and Bernoulli rate estimators) from the JAX package
-to the port.
+link, log-linear, MBR and Bernoulli rate estimators, the SGCP's variational
+parameters, a multiple-kernel learner's fit) from the JAX package to the
+port.
 
 Inputs are numpy arrays (or anything with ``__array__``, such as a JAX
 array); nothing here imports JAX.
@@ -234,3 +235,40 @@ def load_rate_estimator_state(est_port, rate=None, W=None, phis=None,
     if loglikelihood is not None:
         est_port.loglikelihood = float(loglikelihood)
     return est_port
+
+
+def load_sgcp_state(sg_port, m, L_raw, log_lam):
+    """Set a port `SGCPVariational`'s variational parameters (the whitened
+    mean m, the raw factor L_raw and log λ*) to a JAX fit's, so that its
+    rate functions and bands run on the JAX state."""
+    def t(a):
+        return as_tensor(a, device=sg_port.device, dtype=sg_port.dtype)
+
+    sg_port.params = {"m": t(m).reshape(-1), "L_raw": t(L_raw),
+                      "log_lam": t(log_lam).reshape(())}
+    return sg_port
+
+
+def load_mkl_state(mkl_port, x, y, alphas, L=None, A=None):
+    """Load a JAX `MultipleKernelLearner`'s fit (its data, weights α and,
+    where given, the factor L of Σ αₖKₖ + λs²I and A = (LLᵀ)⁻¹y) into a
+    port one built on the same kernels; L and A left None are formed from
+    the port's own Grams."""
+    from stpy_tpu_torch.linalg import cho_solve, safe_cholesky
+
+    def t(a):
+        return as_tensor(a, device=mkl_port.device, dtype=mkl_port.dtype)
+
+    mkl_port.x, mkl_port.y = t(x), t(y).reshape(-1, 1)
+    mkl_port.n, mkl_port.d = mkl_port.x.shape
+    mkl_port.alphas = t(alphas).reshape(-1)
+    mkl_port.Ks = torch.stack([k.gram(mkl_port.x)
+                               for k in mkl_port.kernel_objects])
+    mkl_port.K = torch.einsum("k,kij->ij", mkl_port.alphas, mkl_port.Ks) + \
+        mkl_port.lam * mkl_port.s**2 * torch.eye(
+            mkl_port.n, dtype=mkl_port.dtype, device=mkl_port.device)
+    mkl_port.L = t(L) if L is not None else safe_cholesky(mkl_port.K).L
+    mkl_port.A = t(A).reshape(-1, 1) if A is not None else cho_solve(
+        mkl_port.L, mkl_port.y)
+    mkl_port.fitted = True
+    return mkl_port

@@ -19,7 +19,8 @@ The JAX package needs a jaxpr double-float interpreter (ops/df_interp.py)
 and a node-scanned df Bessel (ops/matern_df.py) for the last two because
 the TPU has no f64; the card has, so neither is ported, nor `strip_fold`.
 Composites fold their pairs in float64 and split again (`df_add`,
-`df_mul`).
+`df_mul`). `gram64` is the float64 Gram of any kernel, on this plan where
+the kernel is narrower than float64.
 """
 
 from __future__ import annotations
@@ -122,3 +123,20 @@ def df_diag_from_desc(kernel_object, params_dict, x, desc, chunk=512):
         hs.append(torch.diagonal(Dh))
         ls.append(torch.diagonal(Dl))
     return torch.cat(hs), torch.cat(ls)
+
+
+def gram64(kernel_object, a, b=None):
+    """K(a, b) in float64 (the symmetrised K(a, a) where b is None): on a
+    kernel narrower than float64 its double-float Gram of the float64
+    points (csrc/gram_df.cu on the card for the fused families), else the
+    kernel's own Gram."""
+    ko = kernel_object
+    f64 = torch.float64
+    if ko.dtype != f64:
+        a64 = a.to(f64)
+        b64 = a64 if b is None else b.to(f64)
+        Kh, Kl = df_gram_from_desc(ko, ko.params_dict, a64, b64,
+                                   df_atom_desc(ko))
+        K = Kh.to(f64) + Kl.to(f64)
+        return 0.5 * (K + K.T) if b is None else K
+    return ko.gram(a) if b is None else ko.cross(a, b)

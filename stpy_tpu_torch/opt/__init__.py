@@ -1,7 +1,17 @@
+from stpy_tpu_torch.opt.custom import (
+    greedy_per_step,
+    matrix_recovery_hermitian_trace_regression,
+    newton_solve,
+)
 from stpy_tpu_torch.opt.ellipsoid import (
     maximize_on_ellipsoid,
     maximize_on_elliptical_slice,
     project_ellipsoid,
+)
+from stpy_tpu_torch.opt.frank_wolfe import (
+    exponentiated_gradient_step,
+    frank_wolfe_step,
+    minimize_on_simplex,
 )
 from stpy_tpu_torch.opt.lbfgs import (
     LBFGSResult,

@@ -48,13 +48,14 @@ from stpy_tpu_torch.parallel.iterative import (
 )
 from stpy_tpu_torch.parallel.slq import rademacher, slq_logdet
 
-def step_generator(seed: int, step: int, device="cpu") -> torch.Generator:
-    """The generator of one step of a fit, on `device`: seeded from
-    (seed, step) through numpy's SeedSequence, the port's
-    `fold_in(key, step)`."""
+def step_generator(seed: int, step: int, device=None) -> torch.Generator:
+    """The generator of one step of a fit, on `device` (the card unless
+    the caller passes another): seeded from (seed, step) through numpy's
+    SeedSequence, the port's `fold_in(key, step)`."""
     state = np.random.SeedSequence([int(seed), int(step)]).generate_state(
         1, np.uint64)[0]
-    return torch.Generator(device=device).manual_seed(int(state))
+    return torch.Generator(device=resolve_device(device)).manual_seed(
+        int(state))
 
 
 def _is_vec(gamma) -> bool:

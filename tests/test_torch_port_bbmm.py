@@ -371,13 +371,17 @@ def test_fit_evidence_lazy_reports_a_failed_closing_evaluation(monkeypatch):
     assert out["steps_run"] == 2 and np.isfinite(out["gamma"])
 
 
-def test_step_generators_are_seeded_from_seed_and_step():
+def test_step_generators_are_seeded_from_seed_and_step(monkeypatch):
     def draw(seed, step):
-        return torch.randint(0, 2, (64,), generator=tbb.step_generator(seed,
-                                                                       step))
+        return torch.randint(0, 2, (64,), generator=tbb.step_generator(
+            seed, step, device="cpu"))
     assert torch.equal(draw(0, 3), draw(0, 3))
     assert not torch.equal(draw(0, 3), draw(0, 4))
     assert not torch.equal(draw(0, 3), draw(1, 3))
+    # with no device the generator lives on the card, never the CPU
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tbb.step_generator(0, 3)
 
 
 @pytest.mark.parametrize("case", ["ard", "ard[0,2]+matern32"])

@@ -16,13 +16,9 @@ import torch
 
 import jax.numpy as jnp
 
-from stpy_tpu.kernels import df_plan as jax_df_plan
 from stpy_tpu.models import GaussianProcess as JaxGP
 from stpy_tpu_torch import GaussianProcess as TorchGP
-from stpy_tpu_torch.convert import load_fitted_state, params_from_jax
-from stpy_tpu_torch.kernels import df_plan
 from stpy_tpu_torch.ops import launch_counts
-from stpy_tpu_torch.opt import minimize_lbfgs
 
 from test_torch_port_gram import CASES, LAPLACE_CASES, jax_kernel, torch_kernel
 
@@ -102,80 +98,6 @@ def test_single_tier_fit_predict_matches_jax(data, case):
     assert_posterior_close(tg.mean_std(xt), want)
 
 
-@pytest.mark.parametrize("case", CASES)
-def test_double_tier_fit_predict_matches_jax(data, case):
-    x, y, xt = data
-    jg, tg = gp_pair(case, precision="double")
-    want = jg.fit_predict(jnp.asarray(x), jnp.asarray(y), jnp.asarray(xt))
-    assert_posterior_close(tg.fit_predict(x, y, xt), want)
-    assert tg._df_refine_steps_resolved == jg._df_refine_steps_resolved == 1
-    # alpha is kept as the (n, 2) df pair, self.A its hi column
-    assert tg._A_df.shape == (96, 2)
-    assert torch.equal(tg.A, tg._A_df[:, :1])
-
-
-@pytest.mark.parametrize("case", CASES)
-def test_var_refine_fit_predict_matches_jax(data, case):
-    x, y, xt = data
-    jg, tg = gp_pair(case, precision="double", var_refine=1)
-    want = jg.fit_predict(jnp.asarray(x), jnp.asarray(y), jnp.asarray(xt))
-    assert_posterior_close(tg.fit_predict(x, y, xt), want)
-    # the train df Gram is kept for the quadratic form, as in the JAX GP
-    got = sum(k.numpy() for k in tg._df_train)
-    want = sum(np.asarray(k) for k in jg._df_train)
-    assert np.max(np.abs(got - want) / want) <= 1e-13
-
-
-@pytest.mark.parametrize("case", CASES)
-def test_var_refine_fit_gp_then_mean_std_matches_jax(data, case):
-    x, y, xt = data
-    jg, tg = gp_pair(case, precision="double", var_refine=1)
-    jg.fit_gp(jnp.asarray(x), jnp.asarray(y))
-    tg.fit_gp(x, y)
-    assert_posterior_close(tg.mean_std(xt), jg.mean_std(jnp.asarray(xt)))
-
-
-def test_var_refine_above_one_acts_as_one(data):
-    x, y, xt = data
-    one = TorchGP(kernel=torch_kernel("se+matern32"), s=S, precision="double",
-                  var_refine=1).fit_predict(x, y, xt)
-    two = TorchGP(kernel=torch_kernel("se+matern32"), s=S, precision="double",
-                  var_refine=2).fit_predict(x, y, xt)
-    assert all(torch.equal(a, b) for a, b in zip(one, two))
-
-
-def test_var_refine_tightens_the_variance_over_var_refine_zero(data):
-    """Against a float64 posterior on the same f32-rounded Gram pair, the
-    refined variance is exact to the df floor while the var_refine=0
-    variance goes through the hi part only."""
-    x, y, xt = data
-    errs = {}
-    for vr in (0, 1):
-        tg = TorchGP(kernel=torch_kernel("matern32"), s=S, precision="double",
-                     var_refine=vr)
-        _, sd = tg.fit_predict(x, y, xt)
-        K = tg.kernel_object.cross(x, x).numpy() + S * S * np.eye(96)
-        Ks = tg.kernel_object.cross(xt, x).numpy()
-        var = 1.0 - np.einsum("tn,nt->t", Ks, np.linalg.solve(K, Ks.T))
-        errs[vr] = np.max(np.abs(sd.numpy()[:, 0] ** 2 - var) / var)
-    assert errs[1] <= 1e-9 < errs[0]
-
-
-@pytest.mark.parametrize("case", CASES)
-def test_df_diag_from_desc_matches_jax(case):
-    xt = np.random.default_rng(9).uniform(-1, 1, (70, 3))
-    jk, tk = jax_kernel(case), torch_kernel(case)
-    jh, jl = jax_df_plan.df_diag_from_desc(
-        jk, jk.params_dict, jnp.asarray(xt), jax_df_plan.df_atom_desc(jk),
-        chunk=32)
-    th, tl = df_plan.df_diag_from_desc(
-        tk, tk.params_dict, torch.as_tensor(xt), df_plan.df_atom_desc(tk),
-        chunk=32)
-    got = th.double().numpy() + tl.double().numpy()
-    want = np.asarray(jh, np.float64) + np.asarray(jl, np.float64)
-    assert th.shape == (70,) and np.max(np.abs(got - want) / want) <= 1e-13
-
-
 @pytest.mark.parametrize("case", LAPLACE_CASES)
 def test_laplace_single_tier_matches_jax(data, case):
     x, y, xt = data
@@ -185,71 +107,6 @@ def test_laplace_single_tier_matches_jax(data, case):
     jg.fit_gp(jnp.asarray(x), jnp.asarray(y))
     tg.fit_gp(x, y)
     assert_posterior_close(tg.mean_std(xt), jg.mean_std(jnp.asarray(xt)))
-
-
-@pytest.mark.parametrize("case", LAPLACE_CASES)
-def test_double_tier_laplace_is_the_float64_l1_posterior(data, case):
-    """The double tier of a kernel with a laplace atom runs the L1 family
-    of the double-float Gram (the single tier's kernel; the JAX package's
-    double tier computes an L2 Matérn-½ there, ROADMAP Queue 3): its
-    posterior at var_refine=1 is the float64 model's on the L1 Gram, to
-    the f32 floor of the returned mean and std (1e-7)."""
-    x, y, xt = data
-    x, xt = (np.asarray(a, np.float32).astype(np.float64) for a in (x, xt))
-    want = TorchGP(kernel=torch_kernel(case), s=S).fit_predict(x, y, xt)
-    tg = TorchGP(kernel=torch_kernel(case, dtype=torch.float32), s=S,
-                 precision="double", var_refine=1)
-    assert [d[1] for d in tg._df_desc].count("laplace") == 1
-    assert_posterior_close(tg.fit_predict(x, y, xt), want, mean_rtol=1e-7,
-                           std_rtol=1e-6)
-
-
-def test_double_tier_fit_gp_then_mean_std_matches_jax(data):
-    x, y, xt = data
-    jg, tg = gp_pair("ard*matern52", precision="double", df_refine_steps=2)
-    jg.fit_gp(jnp.asarray(x), jnp.asarray(y))
-    tg.fit_gp(x, y)
-    assert_posterior_close(tg.mean_std(xt), jg.mean_std(jnp.asarray(xt)))
-
-
-@pytest.mark.parametrize("precision,var_refine", [
-    ("single", 0), ("double", 0), ("double", 1)])
-def test_mean_std_on_loaded_jax_state(data, precision, var_refine):
-    x, y, xt = data
-    kw = dict(s=S, precision=precision, var_refine=var_refine)
-    jg = JaxGP(kernel=jax_kernel("se+matern32"), **kw)
-    jg.fit_gp(jnp.asarray(x), jnp.asarray(y))
-    tg = TorchGP(kernel=torch_kernel("se+matern32"), **kw)
-    tg.kernel_object.set_params(params_from_jax(
-        {k: {n: np.asarray(v) for n, v in p.items()}
-         for k, p in jg.kernel_object.params_dict.items()}))
-    load_fitted_state(
-        tg, np.asarray(jg.x), np.asarray(jg.y), np.asarray(jg.L),
-        np.asarray(jg.A),
-        A_df=None if jg._A_df is None else np.asarray(jg._A_df),
-        df_train=(None if jg._df_train is None
-                  else [np.asarray(k) for k in jg._df_train]))
-    assert_posterior_close(tg.mean_std(xt), jg.mean_std(jnp.asarray(xt)),
-                           STATE_RTOL, STATE_RTOL)
-
-
-def test_loading_a_var_refine_state_needs_the_train_df_gram(data):
-    x, y, _ = data
-    tg = TorchGP(kernel=torch_kernel("se"), s=S, precision="double",
-                 var_refine=1)
-    with pytest.raises(ValueError, match="df_train"):
-        load_fitted_state(tg, x, y, np.eye(96), y, A_df=np.zeros((96, 2)))
-
-
-def test_params_from_jax_keeps_float64_values():
-    jk = jax_kernel("ard*matern52")
-    pd = params_from_jax({k: {n: np.asarray(v) for n, v in p.items()}
-                          for k, p in jk.params_dict.items()})
-    assert set(pd) == {"0", "1"} and set(pd["0"]) == {"kappa", "ard_gamma"}
-    for k, p in jk.params_dict.items():
-        for n, v in p.items():
-            assert pd[k][n].dtype == torch.float64
-            assert np.array_equal(pd[k][n].numpy(), np.asarray(v))
 
 
 def test_full_covariance_matches_jax(data):
@@ -319,63 +176,6 @@ def test_unported_paths_raise_naming_the_roadmap(kwargs, call):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         gp = TorchGP(kernel=torch_kernel("se"), **kwargs)
         call(gp)
-
-
-def _robust_alpha_pair(data, monkeypatch):
-    x, y, _ = data
-    y = y.copy()
-    y[:4] += 5.0
-    jg = JaxGP(kernel=jax_kernel("matern12"), s=1.0, loss="huber")
-    tg = TorchGP(kernel=torch_kernel("matern12"), s=1.0, loss="huber")
-    jg.fit_gp(jnp.asarray(x), jnp.asarray(y))
-    tg.fit_gp(x, y)
-    assert tg.robust_status["converged"]
-    return tg.A.numpy(), np.asarray(jg.A)
-
-
-def _ucb_pair(data, monkeypatch):
-    import jax
-
-    x, y, _ = data
-    U = np.random.default_rng(3).uniform(size=(6, 3))
-    bounds = [[-1.0, 1.0]] * 3
-    jg = JaxGP(kernel=jax_kernel("se"), s=S, bounds=bounds)
-    tg = TorchGP(kernel=torch_kernel("se"), s=S, bounds=bounds)
-    jg.fit_gp(jnp.asarray(x), jnp.asarray(y))
-    tg.fit_gp(x, y)
-    # both packages start from the same uniforms
-    monkeypatch.setattr(jax.random, "uniform",
-                        lambda *a, **k: jnp.asarray(U))
-    monkeypatch.setattr(torch, "rand", lambda *a, **k: torch.as_tensor(U))
-    jp, _ = jg.ucb_optimize(multistart=6, steps=50)
-    tp, _ = tg.ucb_optimize(multistart=6, steps=50, generator=torch.Generator())
-    return tp.numpy(), np.asarray(jp)
-
-
-def _zoom_pair(data, monkeypatch):
-    from stpy_tpu.opt.lbfgs import minimize_lbfgs as jax_minimize
-
-    x0 = np.array([-1.2, 1.0, 0.3])
-
-    def rosen(lib):
-        return lambda v: lib.sum(100 * (v[1:] - v[:-1] ** 2) ** 2
-                                 + (1 - v[:-1]) ** 2)
-
-    t = minimize_lbfgs(rosen(torch), torch.as_tensor(x0), max_iter=100)
-    j = jax_minimize(rosen(jnp), jnp.asarray(x0), max_iter=100)
-    assert t.converged and bool(j.converged)
-    return t.x.numpy(), np.asarray(j.x)
-
-
-@pytest.mark.parametrize("pair", [_robust_alpha_pair, _ucb_pair, _zoom_pair],
-                         ids=["robust-loss", "ucb_optimize", "zoom"])
-def test_formerly_unported_paths_match_jax(data, pair, monkeypatch):
-    # the paths the raise test above named before they were ported: the
-    # huber MAP alpha (its L-BFGS converged in both), ucb_optimize from the
-    # same starts, and the zoom line search's default L-BFGS
-    got, want = pair(data, monkeypatch)
-    assert got.shape == want.shape
-    assert np.max(np.abs(got - want)) / np.max(np.abs(want)) <= 1e-8
 
 
 def test_cpu_tensors_leave_every_launch_counter_at_zero(data):

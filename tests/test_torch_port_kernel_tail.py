@@ -22,10 +22,8 @@ import jax.numpy as jnp
 
 from stpy_tpu.kernels import KernelFunction as JaxKernel
 from stpy_tpu.kernels import functions as JF
-from stpy_tpu.utils import groups as jax_groups
 from stpy_tpu_torch import KernelFunction as TorchKernel
 from stpy_tpu_torch.kernels import functions as F
-from stpy_tpu_torch.utils import groups as port_groups
 
 from torch_threads import one_torch_thread  # noqa: F401
 
@@ -143,8 +141,19 @@ def unbent(case, K):
     return np.sin(0.5 * np.pi * K / CASES[case][0]["kappa"])
 
 
-@pytest.mark.parametrize("case", sorted(CASES))
+# the stationary atoms, held here; the others (non-stationary, maps,
+# additive groups, custom) in tests/test_torch_port_kernel_tail_atoms.py
+STATIONARY = ("matern-nu1.2", "ard_matern-nu2.2", "modified_matern-1",
+              "modified_matern-2", "modified_matern-3", "modified_matern-4",
+              "full_covariance_se", "full_covariance_matern", "spectral")
+
+
+@pytest.mark.parametrize("case", sorted(STATIONARY))
 def test_atom_matches_jax(case):
+    check_atom(case)
+
+
+def check_atom(case):
     a, b = points(13, 9)
     jk, tk = kernels(case)
     ja, jb = jnp.asarray(a), jnp.asarray(b)
@@ -209,59 +218,3 @@ def test_general_nu_matern_matches_jax_and_scipy(nu):
     # the diagonal is exactly κ, as the JAX limit makes it
     assert torch.equal(torch.diagonal(tk.gram(x)), torch.ones(20,
                                                               dtype=torch.float64))
-
-
-@pytest.mark.parametrize("case", ["ard-groups", "full_covariance_se"])
-def test_derivatives_match_jax(case):
-    fixed, x = points(3, 2, seed=3)
-    jk, tk = kernels(case)
-    jf, jx = jnp.asarray(fixed), jnp.asarray(x)
-    assert rel(tk.derivative_1(fixed, x), jk.derivative_1(jf, jx)) <= DERIV_RTOL
-    assert rel(tk.derivative_2(fixed, x), jk.derivative_2(jf, jx)) <= DERIV_RTOL
-
-
-def test_se_closed_form_derivatives_match_jax():
-    fixed, x = points(5, 4, seed=4)
-    jk = JaxKernel(kernel_name="squared_exponential", gamma=0.6, d=D)
-    tk = TorchKernel(kernel_name="squared_exponential", gamma=0.6, d=D,
-                     device="cpu", dtype=torch.float64)
-    jf, jx = jnp.asarray(fixed), jnp.asarray(x)
-    assert rel(tk.get_1_der(fixed, x), jk.get_1_der(jf, jx)) <= DERIV_RTOL
-    assert rel(tk.get_2_der(fixed, x), jk.get_2_der(jf, jx)) <= DERIV_RTOL
-
-
-def test_linear_embedding_and_basis_size():
-    x = points(6, 1)[0]
-    jk, tk = kernels("linear")
-    assert np.array_equal(tk.embed(x).numpy(), np.asarray(jk.embed(x)))
-    assert tk.get_basis_size() == jk.get_basis_size() == D
-    _, other = kernels("polynomial")
-    with pytest.raises(AttributeError, match="finite dimensional"):
-        other.embed(x)
-
-
-def test_groups_helpers_match_jax():
-    for d in range(0, 6):
-        assert port_groups.generate_groups(d) == jax_groups.generate_groups(d)
-        assert port_groups.all_pairs(d) == jax_groups.all_pairs(d)
-        assert port_groups.singletons(d) == jax_groups.singletons(d)
-    assert len(port_groups.generate_groups(4)) == 15     # Bell(4)
-
-
-def test_no_pair_broadcast_in_the_per_feature_kernels(monkeypatch):
-    """step, wiener and modified_matern accumulate feature by feature and
-    bessel_kv node by node: no intermediate grows with n·m·d or n·m·384."""
-    seen = []
-    real_exp = torch.exp
-
-    def spy(t, *args, **kw):
-        seen.append(t.numel())
-        return real_exp(t, *args, **kw)
-
-    monkeypatch.setattr(torch, "exp", spy)
-    a, b = points(30, 20, seed=6)
-    ta, tb = torch.as_tensor(a), torch.as_tensor(b)
-    F.modified_matern({"gamma": torch.tensor(0.8)}, ta, tb, nu=2)
-    F.matern({"gamma": torch.tensor(0.8)}, ta, tb, nu=1.3)
-    assert seen and max(seen) <= 30 * 20
-    assert F.step({}, ta, tb).shape == F.wiener({}, ta, tb).shape == (30, 20)

@@ -84,25 +84,6 @@ SOLVERS = {
 }
 
 
-@pytest.mark.parametrize("name", list(SOLVERS))
-@pytest.mark.parametrize("max_iter", [1, 2, 5])
-def test_solver_iterates_match_jax(name, max_iter):
-    t = SOLVERS[name](tp, torch, max_iter)
-    j = SOLVERS[name](jp, jnp, max_iter)
-    assert rel(t.x, j.x) <= 1e-12
-    assert t.iterations == int(j.iterations)
-
-
-@pytest.mark.parametrize("name", list(SOLVERS))
-def test_solver_converged_fit_matches_jax(name):
-    t = SOLVERS[name](tp, torch, 5000)
-    j = SOLVERS[name](jp, jnp, 5000)
-    assert t.converged == bool(j.converged)
-    assert t.iterations == int(j.iterations)
-    assert rel(t.x, j.x) <= 1e-10
-    assert abs(float(t.value) - float(j.value)) <= 1e-10 * abs(float(j.value))
-
-
 def test_bisection_matches_jax_elementwise():
     c = np.array([0.1, 0.5, 2.0, 30.0])
     a, b = np.zeros(4), np.full(4, 3.0)
