@@ -77,7 +77,17 @@ rate against the truth, its exact and linear-response bands), tmg's
 truncated-normal means, EP against the conjugate posterior, the
 Dirichlet and categorical mixtures, GammaContProcess at n = 16384,
 TraceFeatures, ConvexRKHS and each likelihood's objective and confidence
-set.
+set; then (phase 20) the library's tail: linalg's remaining functions at
+bench.py's workload (chol_recursive against cholesky_ex by backward error,
+tri_solve_chunked on the 16384 x 16384 cross block against one
+solve_triangular with both peaks, tri_solve_blocked_t, diag_block_invs,
+solve_psd, and at n = 4096 chol_rank1_update and schur_complement_extend
+against float64), Bayesian optimisation over the test functions
+(GPConfig -> CamelbackBenchmark -> GaussianProcess -> UCB, 40 rounds over
+10000 candidates, and StybTangBenchmark.optimize) against float64 refits,
+and FelSimulator, ProteinBenchmark, the greedy coreset, FeatureRanker,
+SRI, the CVAE, save_model / load_model, the OptimalPositiveBasis round
+trip and euler_maruyama, with gram and gram_df held at their shapes there.
 Phase 2c
 holds both matrix-free kernels in their derivative
 shapes ("dk_sq", "dk") too, and gram_matvec's backward against float64
@@ -110,6 +120,7 @@ import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -185,6 +196,17 @@ from stpy_tpu_torch.point_processes import (
 )
 from stpy_tpu_torch.probes import exp_r3_df_entry
 from stpy_tpu_torch.utils.groups import generate_groups
+from stpy_tpu_torch.configs import GPConfig, KernelConfig
+from stpy_tpu_torch.dimred import SRI
+from stpy_tpu_torch.embeddings.nystrom import OptimalPositiveBasis
+from stpy_tpu_torch.feature_importance import FeatureRanker
+from stpy_tpu_torch.generative_models import CVAE
+from stpy_tpu_torch.sampling import euler_maruyama
+from stpy_tpu_torch.test_functions import (
+    CamelbackBenchmark, FelSimulator, ProteinBenchmark, StybTangBenchmark,
+)
+from stpy_tpu_torch.utils.checkpoint import load_model, save_model
+from stpy_tpu_torch.utils.coresets import coreset_leverage_score_greedy
 
 N = NTEST = 16384
 D = 8
@@ -517,14 +539,17 @@ GENERAL_CHUNK, GENERAL_SMALL_N, GENERAL_PEAK_GROWTH = 2048, 16384, 3.0
 # The same refit in f32 is held at F32_REFIT_RESIDUAL_MAX, a guard at 2.5x
 # that floor, and both its residuals are printed. Then gram_df (each atom)
 # and gemv_df (the product's pair) at the refinement's (df_chunk, n) strips.
-# 3 steps since PR 15 (10 before: 6.4 s a step on an H100). This and the
-# other depths marked "since PR 15" keep the script inside its 1200 s
-# limit on a slow host: at the earlier depths it ran past 1500 s on an H100
-# whose host took 1.6-2.3x as long over the launch-bound phases as others
-GENERAL_FIT_STEPS = 3
+# 2 steps (10 at first, then 3: 6.4 s a step on an H100). This and the
+# other cut depths (DF_VARIANCE_T, VOLUME_BISECTIONS, ONLINE_CAP,
+# FEATURE_REPS, ESTIMATOR_REPS) keep the script inside its 1200 s limit on
+# a slow host: at the first depths it ran past 1500 s on an H100 whose
+# host took 1.6-2.3x as long over the launch-bound phases as others, and
+# with phase 20 at the depths before the last cuts it took 1104 s on a
+# host 1.5x slower there than another
+GENERAL_FIT_STEPS = 2
 F32_REFIT_RESIDUAL_MAX = 1e-3
-# 15.3 serves DF_VARIANCE_T test points, 256 since PR 15 (1024 before)
-DF_VARIANCE_T = 256
+# 15.3 serves DF_VARIANCE_T test points, 128 (1024 at first, then 256)
+DF_VARIANCE_T = 128
 # 15.3: the df-refined matrix-free variance (precision="double", the
 # default var_refine=1) on phase 8's system at t = DF_VARIANCE_T, against the
 # dense float64 posterior: mean within LAZY_DOUBLE_MEAN_RTOL, variance max
@@ -583,10 +608,10 @@ SAMPLE_MAX_T, SAMPLE_MAX_SIZE = 1024, 16
 # 1 ± 1e-15 spread 3.3e-4. μ's difference is printed.
 VOLUME_BAND, VOLUME_T, VOLUME_SCALE = ((100, 3.0), (700, -3.0)), 256, 0.1
 VOLUME_RELU_RTOL, VOLUME_OBJ_RTOL = 1e-6, 1e-3
-# the scale's bisection steps of the timed call, 2 since PR 15
-# (volume_mean's default 10 before; each step is two fits, 1.3 s relu and 2.7 s logistic on
-# an H100, twice that on a slow host)
-VOLUME_BISECTIONS = 2
+# the scale's bisection steps of the timed call, 1 (volume_mean's default
+# 10 at first, then 2; each step is two fits, 1.3 s relu and 2.7 s
+# logistic on an H100, twice that on a slow host)
+VOLUME_BISECTIONS = 1
 # 15.9: OnlineGP, capacity ONLINE_CAP, d = 8, bench rows fed one at a time;
 # against the batch GaussianProcess on the same points at 4096 test points:
 # mean within ONLINE_MEAN_RTOL of its largest entry, std within
@@ -3950,10 +3975,30 @@ def poisson_data(p, leaves, dt, seed):
     return [(S, p.sample_discretized(g, S, dt, n=16), dt) for S in leaves]
 
 
+def _on_card(args, kwargs):
+    """Whether an aten call's arguments hold a CUDA tensor: at the top level
+    or in a list (Tensor, Tensor? and Tensor[] are aten's only tensor
+    arguments), read without flattening them as a pytree, which cost
+    ~20 µs an operation (the permanental cold fit runs 1.33 M
+    operations)."""
+    for a in (*args, *(kwargs or {}).values()):
+        if isinstance(a, torch.Tensor):
+            if a.is_cuda:
+                return True
+        elif isinstance(a, (list, tuple)):
+            for b in a:
+                if isinstance(b, torch.Tensor) and b.is_cuda:
+                    return True
+    return False
+
+
 class DeviceOps(TorchDispatchMode):
     """Counts the aten operations on CUDA tensors that are not views (each
     launches one kernel or more on the card, or copies to the host), and
     the host reads among them."""
+
+    READS = frozenset((torch.ops.aten._local_scalar_dense.default,
+                       torch.ops.aten.equal.default))
 
     def __init__(self):
         super().__init__()
@@ -3961,12 +4006,9 @@ class DeviceOps(TorchDispatchMode):
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         out = func(*args, **(kwargs or {}))
-        if not func.is_view and any(
-                isinstance(a, torch.Tensor) and a.is_cuda
-                for a in torch.utils._pytree.tree_leaves((args, kwargs))):
+        if not func.is_view and _on_card(args, kwargs):
             self.ops += 1
-            self.reads += func in (torch.ops.aten._local_scalar_dense.default,
-                                   torch.ops.aten.equal.default)
+            self.reads += func in self.READS
         return out
 
 
@@ -5285,6 +5327,663 @@ def phase19(dev):
     return out, walls
 
 
+# phase 20: the library's tail -- linalg's remaining functions at bench.py's
+# workload, Bayesian optimisation over the test functions (configs -> test
+# function -> GaussianProcess -> UCB), the data benchmarks, the coreset,
+# FeatureRanker, SRI, the CVAE, the checkpoints and euler_maruyama
+TAIL_CHOL_NB = 2048          # chol_recursive's leaves (the JAX default)
+TAIL_CHUNK = 1024            # tri_solve_chunked's columns (the JAX default)
+TAIL_BLOCK_NB = 512          # diag_block_invs' blocks
+TAIL_BLOCK_COLS = 256        # tri_solve_blocked_t's right-hand side
+TAIL_BACKWARD_RATIO = 2.0    # chol_recursive's backward error / cholesky_ex's
+# tri_solve_chunked's error against the float64 solve over one f32
+# solve_triangular's: cuBLAS's f32 trsm is itself 1.0e-5 from float64 on
+# the 16384-wide block and 2.75e-5 at widths 512-8192 (an H100), so
+# the two f32 solves part by 2.5e-5, and a bar on their difference (1e-5)
+# would hold cuBLAS's rounding, not the chunking
+TAIL_SOLVE_RATIO = 4.0
+TAIL_TRSM_RTOL = 1e-6        # tri_solve_blocked_t against one solve
+# diag_block_invs against the float64 inverses of the 512² blocks: the
+# batched trsm is 5.8e-7 from float64 where the per-block trsm is 2.4e-7
+# (an H100); 1e-5 is cond(L_bb)·eps32 with room
+TAIL_INV_RTOL = 1e-5
+TAIL_PSD_RTOL = 1e-4         # solve_psd's relative residual in float64
+RANK1_N = 4096
+RANK1_RTOL = {torch.float64: 1e-10, torch.float32: 1e-4}
+SCHUR_RTOL = 1e-10
+BO_GRID, BO_INIT, BO_ROUNDS, BO_BETA = 100, 10, 40, 2.0
+# the kernel's bandwidth on Camelback over [-0.5, 0.5]² (s is GPConfig's
+# default 0.1): the default γ = 1 is smoother than the function, and its
+# loop ends 0.056 below the maximum (CPU rehearsal)
+BO_GAMMA = 0.2
+BO_MEAN_RTOL = 1e-4
+BO_REGRET_MAX = 0.05         # the JAX package's BO test's bound
+OPTIMIZE_N, OPTIMIZE_D, OPTIMIZE_SIGMA = 1024, 4, 0.1
+TAIL_FIT_RTOL = 1e-2         # a fitted γ against the float64 fit's
+FEL_N, FEL_D = 4096, 5
+# the f32 FEL GP's mean against float64's: its fitted s ≈ 0.043 leaves
+# K + s²I with a condition number near 1e6 (CPU rehearsal at n = 2048:
+# 5.9e-4)
+FEL_MEAN_RTOL = 5e-3
+PROTEIN_DIM, PROTEIN_N, PROTEIN_HELD = 4, 4096, 1024
+PROTEIN_GAMMA, PROTEIN_S = 2.0, 0.1
+PROTEIN_RMSE_MAX = 0.2       # held-out RMSE over the truth's std (CPU: 0.082)
+CORESET_GRID, CORESET_N, CORESET_GAMMA = 64, 64, 0.2
+# each f32 pick's float64 posterior variance (given the picks before it)
+# below the grid's float64 maximum: the symmetric grid ties its
+# variances, and f32 rounding breaks the ties otherwise than float64
+CORESET_SLACK_ATOL = 1e-4
+SRI_N, SRI_D = 4096, 8
+SRI_COS_MIN = 0.99
+CVAE_N, CVAE_FEAT, CVAE_COND, CVAE_LATENT = 4096, 64, 8, 8
+CVAE_EPOCHS, CVAE_BATCH, CVAE_LR = 5, 128, 1e-3
+EM_PATHS, EM_STEPS, EM_DT = 4096, 1000, 0.05
+EM_BURN = 200               # steps before the paths' stationary pool (t = 10)
+EM_VAR_RTOL = 0.05
+BASIS_M, BASIS_GAMMA = 8, 0.3
+RANKER_RTOL = 1e-4          # CPU: 1.6e-6
+
+
+def backward_error64(L, K):
+    """‖K − L Lᵀ‖_F / ‖K‖_F in float64."""
+    L64 = L.double()
+    R = K.double()
+    R.addmm_(L64, L64.T, alpha=-1.0)
+    e = float(torch.linalg.matrix_norm(R) / torch.linalg.matrix_norm(
+        K.double()))
+    del L64, R
+    return e
+
+
+def peak_gib(fn):
+    """(fn(), device memory held above what was held before, at its peak,
+    GiB)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (torch.cuda.max_memory_allocated() - base) / 2**30
+
+
+def rank1_run(dev, K):
+    """chol_rank1_update at RANK1_N in float64 and f32 against cholesky_ex
+    of L Lᵀ + v vᵀ (float64), with the sweep's device ops and wall;
+    schur_complement_extend against the float64 inverse of the extended
+    Gram; K is the noise-free Gram, s²I goes onto its corner's copy."""
+    n = RANK1_N
+    K64 = K[:n + 1, :n + 1].double()
+    K64.diagonal().add_(S * S)
+    L64 = torch.linalg.cholesky(K64[:n, :n])
+    g = torch.Generator(device=dev).manual_seed(20)
+    v = 0.1 * torch.randn(n, generator=g, dtype=torch.float64, device=dev)
+    ref = torch.linalg.cholesky_ex(L64 @ L64.T + torch.outer(v, v)).L
+    out = {}
+    for dt in (torch.float64, torch.float32):
+        U, wall = synced(lambda: linalg.chol_rank1_update(L64.to(dt),
+                                                          v.to(dt)))
+        out[str(dt).split(".")[1]] = {
+            "rel_err": float((U.double() - ref).abs().max()
+                             / ref.abs().max()), "wall_s": wall}
+    # the sweep's device operations, counted on a run of its own (the
+    # dispatch mode's Python hook costs more than the launches it counts)
+    out["device_ops"] = device_ops(lambda: linalg.chol_rank1_update(
+        L64.float(), v.float()))[1]
+    Kinv = torch.cholesky_inverse(L64)
+    E = linalg.schur_complement_extend(Kinv, K64[:n, n], K64[n, n])
+    want = torch.linalg.inv(K64)
+    out["schur_rel_err"] = float((E - want).abs().max() / want.abs().max())
+    return out
+
+
+def linalg_tail_run(dev):
+    """20.1 on bench.py's data: the Gram K + s²I (the gram kernel), then
+    chol_recursive against cholesky_ex, tri_solve_chunked on the cross
+    block K(xt, x)ᵀ against one solve_triangular, tri_solve_blocked_t,
+    diag_block_invs and solve_psd, then the rank-1 updates."""
+    x, y, xt = bench_data(dev)
+    kern = KernelFunction(kernel_name="squared_exponential", gamma=GAMMA,
+                          d=D, device=dev)
+    rec = {}
+    K, rec["gram"] = counted_on(dev, lambda: kern.gram(x))
+    K.diagonal().add_(S * S)
+    L_rec = linalg.chol_recursive(K, nb=TAIL_CHOL_NB)
+    L_ex = torch.linalg.cholesky_ex(K).L
+    rec["chol_recursive_ms"] = cuda_ms(
+        lambda: linalg.chol_recursive(K, nb=TAIL_CHOL_NB), reps=3)
+    rec["cholesky_ex_ms"] = cuda_ms(lambda: torch.linalg.cholesky_ex(K),
+                                    reps=3)
+    rec["backward_recursive"] = backward_error64(L_rec, K)
+    rec["backward_cholesky_ex"] = backward_error64(L_ex, K)
+    del L_rec
+    torch.cuda.empty_cache()
+    L = L_ex
+    B = kern.cross(x, xt)                                   # (n, t)
+    X1, rec["single_peak_gib"] = peak_gib(
+        lambda: torch.linalg.solve_triangular(L, B, upper=False))
+    X2, rec["chunked_peak_gib"] = peak_gib(
+        lambda: linalg.tri_solve_chunked(L, B, chunk=TAIL_CHUNK))
+    rec["chunked_rel_diff"] = float((X1 - X2).abs().max() / X1.abs().max())
+    X64 = torch.linalg.solve_triangular(L.double(), B.double(), upper=False)
+    scale = float(X64.abs().max())
+    rec["single_err"] = float((X1.double() - X64).abs().max()) / scale
+    rec["chunked_err"] = float((X2.double() - X64).abs().max()) / scale
+    del X1, X2, X64
+    rec["single_ms"] = cuda_ms(
+        lambda: torch.linalg.solve_triangular(L, B, upper=False), reps=2)
+    rec["chunked_ms"] = cuda_ms(
+        lambda: linalg.tri_solve_chunked(L, B, chunk=TAIL_CHUNK), reps=2)
+    Bn = B[:, :TAIL_BLOCK_COLS]
+    Xt = linalg.tri_solve_blocked_t(L, Bn)
+    Xw = torch.linalg.solve_triangular(L.T, Bn, upper=True)
+    rec["blocked_t_rel_diff"] = float((Xt - Xw).abs().max()
+                                      / Xw.abs().max())
+    del B, Bn, Xt, Xw
+    torch.cuda.empty_cache()
+    Dinv = linalg.diag_block_invs(L, TAIL_BLOCK_NB)
+    k = N // TAIL_BLOCK_NB
+    err_batched = err_single = 0.0
+    for b in range(k):
+        blk = L[b * TAIL_BLOCK_NB:(b + 1) * TAIL_BLOCK_NB,
+                b * TAIL_BLOCK_NB:(b + 1) * TAIL_BLOCK_NB]
+        eye = torch.eye(TAIL_BLOCK_NB, device=dev)
+        want = torch.linalg.solve_triangular(blk.double(), eye.double(),
+                                             upper=False)
+        single = torch.linalg.solve_triangular(blk, eye, upper=False)
+        scale = float(want.abs().max())
+        err_batched = max(err_batched, float(
+            (Dinv[b].double() - want).abs().max()) / scale)
+        err_single = max(err_single, float(
+            (single.double() - want).abs().max()) / scale)
+    rec["diag_block_invs_rel_err"] = err_batched
+    rec["per_block_solve_rel_err"] = err_single
+    del Dinv
+    K.diagonal().sub_(S * S)
+    (xs, res), rec["solve_psd"] = counted_on(
+        dev, lambda: linalg.solve_psd(kern.gram(x) + S * S * torch.eye(
+            N, device=dev), y))
+    A64 = K.double()
+    A64.diagonal().add_(S * S + float(res.jitter))
+    r = A64 @ xs.double() - y.double()
+    rec["solve_psd_residual"] = float(torch.linalg.vector_norm(r)
+                                      / torch.linalg.vector_norm(y.double()))
+    rec["solve_psd_ok"] = bool(res.ok)
+    del A64, r, L, L_ex, xs, res
+    torch.cuda.empty_cache()
+    rec["rank1"] = rank1_run(dev, K)
+    xs = x / GAMMA
+    rec["gram_err"] = scaled_gram_check("20 K(x, x)", xs, xs, "se", 1.5)
+    return rec
+
+
+def linalg_tail_phase(dev):
+    """20.1: stpy_tpu/linalg.py:211-446's functions in the port at bench.py's
+    workload (n = 16384, d = 8, SE γ = 0.5, s = 0.1, seed 0)."""
+    rec = linalg_tail_run(dev)
+    r1 = rec["rank1"]
+    print(f"  20.1 chol_recursive(nb={TAIL_CHOL_NB}) at n = {N}: "
+          f"{rec['chol_recursive_ms']!r} ms, backward error "
+          f"{rec['backward_recursive']!r}; cholesky_ex "
+          f"{rec['cholesky_ex_ms']!r} ms, {rec['backward_cholesky_ex']!r} "
+          f"(bar: within {TAIL_BACKWARD_RATIO}x)")
+    print(f"  20.1 tri_solve_chunked(chunk={TAIL_CHUNK}) on the {N}x{NTEST} "
+          f"cross block: {rec['chunked_ms']!r} ms, peak "
+          f"{rec['chunked_peak_gib']!r} GiB; one solve_triangular "
+          f"{rec['single_ms']!r} ms, peak {rec['single_peak_gib']!r} GiB; "
+          f"against the float64 solve {rec['chunked_err']!r} and "
+          f"{rec['single_err']!r} (bar: within {TAIL_SOLVE_RATIO}x); max rel "
+          f"diff between the two {rec['chunked_rel_diff']!r}")
+    print(f"  20.1 tri_solve_blocked_t on {TAIL_BLOCK_COLS} columns: "
+          f"{rec['blocked_t_rel_diff']!r} from solve_triangular (bar "
+          f"{TAIL_TRSM_RTOL}); diag_block_invs(nb={TAIL_BLOCK_NB}) "
+          f"{rec['diag_block_invs_rel_err']!r} from float64 (bar "
+          f"{TAIL_INV_RTOL}; per-block solve_triangular "
+          f"{rec['per_block_solve_rel_err']!r}); solve_psd residual "
+          f"{rec['solve_psd_residual']!r} (bar {TAIL_PSD_RTOL}), launches "
+          f"{rec['solve_psd']['launches']}")
+    print(f"  20.1 chol_rank1_update at n = {RANK1_N}: float64 "
+          f"{r1['float64']['rel_err']!r} (bar {RANK1_RTOL[torch.float64]}), "
+          f"{r1['float64']['wall_s']!r} s; f32 {r1['float32']['rel_err']!r} "
+          f"(bar {RANK1_RTOL[torch.float32]}), {r1['float32']['wall_s']!r} "
+          f"s; {r1['device_ops']} device ops a sweep; "
+          f"schur_complement_extend {r1['schur_rel_err']!r} (bar "
+          f"{SCHUR_RTOL})")
+    assert (rec["backward_recursive"]
+            <= TAIL_BACKWARD_RATIO * rec["backward_cholesky_ex"]), rec
+    assert rec["chunked_err"] <= TAIL_SOLVE_RATIO * rec["single_err"], rec
+    assert rec["chunked_peak_gib"] <= rec["single_peak_gib"], rec
+    assert rec["blocked_t_rel_diff"] <= TAIL_TRSM_RTOL, rec
+    assert rec["diag_block_invs_rel_err"] <= TAIL_INV_RTOL, rec
+    assert rec["solve_psd_ok"] and \
+        rec["solve_psd_residual"] <= TAIL_PSD_RTOL, rec
+    for dt in (torch.float64, torch.float32):
+        assert r1[str(dt).split(".")[1]]["rel_err"] <= RANK1_RTOL[dt], r1
+    assert r1["schur_rel_err"] <= SCHUR_RTOL, r1
+    assert rec["gram"]["launches"].get("gram", 0) > 0, rec["gram"]
+    assert rec["solve_psd"]["launches"].get("gram", 0) > 0, rec
+    return rec
+
+
+def tail_f64_gp(dev, x, y, s, gamma):
+    """The float64 reference SE GP on the card (its atom on its plain
+    version), fitted on (x, y)."""
+    gp = GaussianProcess(kernel=plain64_kernel(dev, "squared_exponential",
+                                               gamma, x.shape[1]), s=s)
+    gp.fit_gp(x.double(), y.double())
+    return gp
+
+
+def bo_run(dev):
+    """20.2's loop: GPConfig(KernelConfig(SE, γ=BO_GAMMA, d=2)).build() on
+    CamelbackBenchmark's interval(BO_GRID); BO_INIT random initial points
+    (numpy seed 20), then BO_ROUNDS rounds of fit_gp, mean_std over the
+    candidates, argmax of μ + BO_BETA·σ and a noisy eval."""
+    cfg = GPConfig(kernel=KernelConfig(kernel_name="squared_exponential",
+                                       gamma=BO_GAMMA, d=2))
+    gp = cfg.build(device=dev)
+    bench = CamelbackBenchmark(device=dev)
+    xtest = bench.interval(BO_GRID)
+    f_max = bench.maximum(xtest)
+    idx = np.random.default_rng(20).choice(xtest.shape[0], BO_INIT,
+                                           replace=False)
+    X = xtest[torch.as_tensor(idx, device=dev)]
+    Y = bench.eval(X)
+
+    def loop():
+        nonlocal X, Y
+        for _ in range(BO_ROUNDS):
+            gp.fit_gp(X, Y)
+            mu, sd = gp.mean_std(xtest)
+            j = int(torch.argmax(mu + BO_BETA * sd))
+            X = torch.cat([X, xtest[j:j + 1]])
+            Y = torch.cat([Y, bench.eval(xtest[j:j + 1])])
+        gp.fit_gp(X, Y)
+
+    _, runs = counted_on(dev, loop)
+    mu = gp.mean_std(xtest)[0]
+    ref = tail_f64_gp(dev, X, Y, cfg.s, cfg.kernel.gamma)
+    mu64 = ref.mean_std(xtest.double())[0]
+    regret = f_max - float(torch.max(bench.eval_noiseless(X)))
+    return {"regret": regret, "f_max": f_max, "n": int(X.shape[0]),
+            "mean_gap": rel_gap(mu.double(), mu64), **runs}, (gp, ref, xtest)
+
+
+def optimize_run(dev):
+    """20.2's hyperfit: StybTangBenchmark(d=4).optimize on OPTIMIZE_N
+    uniform points (numpy seed 20) at σ = OPTIMIZE_SIGMA, 2 restarts, and
+    the float64 fit of the same ARD GP on the same noisy values."""
+    bench = StybTangBenchmark(d=OPTIMIZE_D, device=dev)
+    X = torch.as_tensor(np.random.default_rng(20).uniform(
+        -0.5, 0.5, (OPTIMIZE_N, OPTIMIZE_D)), dtype=torch.float32,
+        device=dev)
+    state = bench._generator.get_state()
+    gamma32, runs = counted_on(
+        dev, lambda: bench.optimize(X, OPTIMIZE_SIGMA, restarts=2))
+    bench._generator.set_state(state)
+    Y = bench.eval(X, sigma=OPTIMIZE_SIGMA)
+    k64 = plain64_atoms(KernelFunction(
+        kernel_name="ard", d=OPTIMIZE_D, ard_gamma=np.full(OPTIMIZE_D, 0.1),
+        device=dev, dtype=torch.float64))
+    gp64 = GaussianProcess(kernel=k64, s=OPTIMIZE_SIGMA)
+    gp64.fit_gp(X.double(), Y.double())
+    gp64.optimize_params(type="bandwidth", restarts=2)
+    gamma64 = float(torch.min(k64.params_dict["0"]["ard_gamma"]))
+    return {"gamma_f32": gamma32, "gamma_f64": gamma64,
+            "gamma_gap": abs(gamma32 / gamma64 - 1.0), **runs}
+
+
+def bo_tail_phase(dev):
+    """20.2: Bayesian optimisation over the test functions, the slice's
+    main path."""
+    rec, models = bo_run(dev)
+    print(f"  20.2 BO on Camelback ({BO_GRID}² candidates, {BO_INIT} initial "
+          f"points + {BO_ROUNDS} rounds of UCB): simple regret "
+          f"{rec['regret']!r} of max {rec['f_max']!r} (bar {BO_REGRET_MAX}); "
+          f"the final mean {rec['mean_gap']!r} of max|μ64| from the float64 "
+          f"refit (bar {BO_MEAN_RTOL}); loop {rec['wall_s']!r} s, launches "
+          f"{rec['launches']}")
+    assert rec["regret"] <= BO_REGRET_MAX, rec
+    assert rec["mean_gap"] <= BO_MEAN_RTOL, rec
+    assert rec["launches"].get("gram", 0) > 0, rec
+    opt = optimize_run(dev)
+    print(f"  20.2 StybTangBenchmark(d={OPTIMIZE_D}).optimize at n = "
+          f"{OPTIMIZE_N}: γ {opt['gamma_f32']!r} against the float64 fit's "
+          f"{opt['gamma_f64']!r} (gap {opt['gamma_gap']!r}, bar "
+          f"{TAIL_FIT_RTOL}); {opt['wall_s']!r} s, launches "
+          f"{opt['launches']}")
+    assert opt["gamma_gap"] <= TAIL_FIT_RTOL, opt
+    assert opt["launches"].get("gram", 0) > 0, opt
+    gp, _, xtest = models
+    X = gp.x
+    Xs, Ts = X / BO_GAMMA, xtest / BO_GAMMA
+    Xo = torch.as_tensor(np.random.default_rng(20).uniform(
+        -0.5, 0.5, (OPTIMIZE_N, OPTIMIZE_D)), dtype=torch.float32,
+        device=dev) / opt["gamma_f32"]
+    errs = [scaled_gram_check(f"20 {label}", a, b, "se", 1.5)
+            for label, a, b in (("BO K(x, x)", Xs, Xs),
+                                ("BO K(xtest, x)", Ts, Xs),
+                                ("optimize K(x, x)", Xo, Xo))]
+    return {"bo": rec, "optimize": opt, "gram_err": max(errs)}, models
+
+
+def fel_arrays(n=FEL_N, d=FEL_D):
+    """The FEL pipeline's input (numpy seed 20): n rows of d + 1 columns in
+    [2, 7], y a smooth response of the first d plus noise, every line id
+    below d, y_std ~ |N(0.05, 0.01)|."""
+    rng = np.random.default_rng(20)
+    x = rng.uniform(2.0, 7.0, (n, d + 1))
+    y = (np.sin(x[:, 0]) + 0.5 * np.cos(x[:, 1]) * x[:, 2] / 7.0
+         + 0.1 * x[:, 3] - 0.05 * (x[:, 4] - 4.5) ** 2
+         + 0.05 * rng.standard_normal(n))
+    return x, y, rng.integers(0, d, n), np.abs(rng.normal(0.05, 0.01, n))
+
+
+def fel_run(dev):
+    sims = {}
+    for dt in (torch.float32, torch.float64):
+        sim = FelSimulator(d=FEL_D, sigma=0.01, device=dev, dtype=dt)
+        sim.from_arrays(*fel_arrays())
+        kern = (KernelFunction(kernel_name="squared_exponential", gamma=1.0,
+                               d=FEL_D, device=dev) if dt == torch.float32
+                else plain64_kernel(dev, "squared_exponential", 1.0, FEL_D))
+        gp = GaussianProcess(kernel=kern, s=sim.s)
+        _, runs = counted_on(
+            dev, lambda: sim.fit_simulator(gp, "bandwidth", restarts=2))
+        sims[dt] = (sim, runs)
+    (s32, runs), (s64, _) = sims[torch.float32], sims[torch.float64]
+    g32 = float(s32.GP.kernel_object.params_dict["0"]["gamma"])
+    g64 = float(s64.GP.kernel_object.params_dict["0"]["gamma"])
+    xt = torch.as_tensor(np.random.default_rng(21).uniform(
+        -0.5, 0.5, (1024, FEL_D)), device=dev)
+    mu = s32.eval_noiseless(xt.float())
+    mu64 = s64.eval_noiseless(xt)
+    return {"gamma_f32": g32, "gamma_f64": g64,
+            "gamma_gap": abs(g32 / g64 - 1.0),
+            "mean_gap": rel_gap(mu.double(), mu64), "s": s32.s, **runs}, s32
+
+
+def protein_run(dev):
+    bench, truth = ProteinBenchmark.synthetic(dim=PROTEIN_DIM, n=PROTEIN_N,
+                                              key=20, device=dev)
+    X, y = bench.get_data()
+    gp = GaussianProcess(gamma=PROTEIN_GAMMA, s=PROTEIN_S,
+                         d=X.shape[1], device=dev)
+    _, runs = counted_on(dev, lambda: gp.fit_gp(X, y))
+    codes = np.random.default_rng(21).integers(0, 20, (PROTEIN_HELD,
+                                                       PROTEIN_DIM))
+    Xh = bench.op.translate_one_hot(codes)
+    mu, mruns = counted_on(dev, lambda: gp.mean_std(Xh)[0])
+    want = truth(codes) / bench.y_scale
+    ref = tail_f64_gp(dev, X, y, PROTEIN_S, PROTEIN_GAMMA)
+    mu64 = ref.mean_std(Xh.double())[0]
+    rmse = float(np.sqrt(np.mean((mu.double().cpu().numpy() - want) ** 2)))
+    return {"rmse_over_std": rmse / float(np.std(want)),
+            "mean_gap": rel_gap(mu.double(), mu64), "fit": runs,
+            "mean_std": mruns}, (X, Xh)
+
+
+def coreset_run(dev):
+    """coreset_leverage_score_greedy (noise 1e-3) on a CORESET_GRID² grid
+    of [-1, 1]², SE γ = CORESET_GAMMA, CORESET_N picks, f32 on the card;
+    then, for each pick in float64, how far its posterior variance given
+    the picks before it lies below the grid's largest."""
+    box = BorelSet(2, np.array([[-1.0, 1.0], [-1.0, 1.0]]), device=dev)
+    k = KernelFunction(kernel_name="squared_exponential",
+                       gamma=CORESET_GAMMA, d=2, device=dev)
+    picks, runs = counted_on(dev, lambda: coreset_leverage_score_greedy(
+        box, k, CORESET_N, grid=CORESET_GRID))
+    grid = box.return_discretization(CORESET_GRID).double()
+    k64 = plain64_kernel(dev, "squared_exponential", CORESET_GAMMA, 2)
+    idx = torch.cdist(picks.double(), grid).argmin(dim=1)
+    slack, var = 0.0, torch.ones(grid.shape[0], dtype=torch.float64,
+                                 device=dev)
+    for i in range(picks.shape[0]):
+        if i:
+            pts = grid[idx[:i]]
+            A = k64.gram(pts) + 1e-3 * torch.eye(i, dtype=torch.float64,
+                                                 device=dev)
+            V = torch.linalg.solve_triangular(torch.linalg.cholesky(A),
+                                              k64.cross(grid, pts).T,
+                                              upper=False)
+            var = 1.0 - (V * V).sum(0)
+        slack = max(slack, float(var.max() - var[idx[i]]))
+    return {"n": int(picks.shape[0]), "slack": slack,
+            "var_max_after": float(var.max()), **runs}, picks
+
+
+def ranker_run(dev, gp, ref):
+    """FeatureRanker.one_off_importance on 20.2's GP and on its float64
+    refit."""
+    imp, runs = counted_on(dev, lambda: FeatureRanker(
+        gp, gp.x, gp.y).one_off_importance())
+    imp64 = FeatureRanker(ref, ref.x, ref.y).one_off_importance()
+    return {"importance": imp.tolist(), "importance_f64": imp64.tolist(),
+            "gap": float(np.max(np.abs(imp - imp64)) / np.max(np.abs(imp64))),
+            **runs}
+
+
+def sri_run(dev):
+    rng = np.random.default_rng(20)
+    X = rng.standard_normal((SRI_N, SRI_D))
+    beta = rng.standard_normal(SRI_D)
+    beta /= np.linalg.norm(beta)
+    y = np.tanh(X @ beta) + 0.05 * rng.standard_normal(SRI_N)
+    sri = SRI(device=dev)
+    (dirs, eig), wall = synced(lambda: sri.fit_sri(X, y))
+    ref = SRI(device=dev, dtype=torch.float64)
+    _, eig64 = ref.fit_sri(X, y)
+    top = dirs[:, 0].double().cpu().numpy()
+    return {"cos_top": float(abs(top @ beta) / np.linalg.norm(top)),
+            "eig_gap": rel_gap(eig.double(), eig64), "wall_s": wall}
+
+
+def cvae_run(dev):
+    rng = np.random.default_rng(20)
+    labels = rng.integers(0, CVAE_COND, CVAE_N)
+    p = 0.1 + 0.8 * (np.arange(CVAE_FEAT)[None, :] % CVAE_COND
+                     == labels[:, None])
+    X = (rng.uniform(size=(CVAE_N, CVAE_FEAT)) < p).astype(np.float32)
+    Y = np.eye(CVAE_COND, dtype=np.float32)[labels]
+    model = CVAE(CVAE_FEAT, CVAE_LATENT, cond_size=CVAE_COND, device=dev)
+    Xt, Yt = (torch.as_tensor(a, device=dev) for a in (X, Y))
+
+    def elbo():
+        with torch.no_grad():
+            g = torch.Generator(device=dev).manual_seed(21)
+            return float(model.elbo_loss(Xt, Yt, generator=g)) / CVAE_N
+
+    before = elbo()
+    _, wall = synced(lambda: model.fit(X, Y, epochs=CVAE_EPOCHS,
+                                       batch=CVAE_BATCH, lr=CVAE_LR))
+    after = elbo()
+    s = model.sample(Y[:1], size=16,
+                     generator=torch.Generator(device=dev).manual_seed(22))
+    return {"loss_before": before, "loss_after": after, "wall_s": wall,
+            "sample_in_unit_box": bool((s >= 0).all() and (s <= 1).all())}
+
+
+def checkpoint_run(dev, sim, tmp):
+    """save_model / load_model of the FEL GP: mean_std of the loaded GP
+    against the saved one, bit for bit; then the OptimalPositiveBasis round
+    trip (f32 on the card: Γ's grid Gram is the double-float one)."""
+    gp = sim.GP
+    xt = torch.as_tensor(np.random.default_rng(22).uniform(
+        -0.5, 0.5, (4096, FEL_D)), dtype=torch.float32, device=dev)
+    mu, sd = gp.mean_std(xt)
+    path = Path(tmp) / "fel_gp.npz"
+    save_model(path, gp)
+    fresh = GaussianProcess(gamma=1.0, s=gp.s, d=FEL_D, device=dev)
+    load_model(path, fresh)
+    mu2, sd2 = fresh.mean_std(xt)
+    rec = {"model_bitwise": bool(torch.equal(mu, mu2)
+                                 and torch.equal(sd, sd2)),
+           "model_bytes": path.stat().st_size}
+
+    def basis(seed):
+        k = KernelFunction(kernel_name="squared_exponential",
+                           gamma=BASIS_GAMMA, d=1, device=dev)
+        return OptimalPositiveBasis(
+            1, BASIS_M, kernel_object=k, samples=64, B=4.0, s=1e-3,
+            device=dev, generator=torch.Generator(device=dev).manual_seed(
+                seed))
+
+    q = torch.linspace(-1, 1, 257, device=dev)[:, None]
+    a = basis(0)
+    before = a.embed(q)
+    a.save_embedding(Path(tmp) / "basis")
+    b = basis(1)
+    other = rel_gap(b.embed(q).double(), before.double())
+    b.load_embedding(Path(tmp) / "basis")
+    after, runs = counted_on(dev, lambda: b.embed(q))
+    nodes = b.grid_nodes64()
+    rec.update(basis_gap_before=other,
+               basis_gap=rel_gap(after.double(), before.double()),
+               basis_launches=runs["launches"],
+               gram_df_err=gram_df_check("20.3 basis grid", nodes, nodes,
+                                         "se", 1.0, BASIS_GAMMA)[0])
+    return rec
+
+
+def em_run(dev):
+    g = torch.Generator(device=dev).manual_seed(20)
+    x0 = torch.zeros(EM_PATHS, device=dev)
+    xs, wall = synced(lambda: euler_maruyama(
+        g, lambda x: -x, lambda x: 2.0 ** 0.5, x0, dt=EM_DT, steps=EM_STEPS))
+    # dx = −x dt + √2 dW: Euler's stationary variance is 1/(1 − dt/2); the
+    # states after EM_BURN steps (the start forgotten to e⁻²⁰) pooled
+    want = 1.0 / (1.0 - EM_DT / 2)
+    var = float(xs[EM_BURN:].var())
+    return {"var": var, "var_want": want, "var_gap": abs(var / want - 1.0),
+            "shape": list(xs.shape), "wall_s": wall}
+
+
+def rest_phase(dev, bo_models):
+    """20.3: the data benchmarks, the coreset, FeatureRanker, SRI, the CVAE,
+    the checkpoints and euler_maruyama."""
+    out, walls = {}, {}
+    out["fel"], walls["fel"] = synced(lambda: fel_run(dev))
+    fel, sim = out["fel"]
+    out["fel"] = fel
+    print(f"  20.3 FelSimulator.from_arrays (n = {FEL_N}, d = {FEL_D}) + "
+          f"fit_simulator(bandwidth, restarts=2): γ {fel['gamma_f32']!r} "
+          f"against float64's {fel['gamma_f64']!r} (gap "
+          f"{fel['gamma_gap']!r}, bar {TAIL_FIT_RTOL}); mean "
+          f"{fel['mean_gap']!r} of max|μ64| (bar {FEL_MEAN_RTOL}); fit "
+          f"{fel['wall_s']!r} s, launches {fel['launches']}")
+    assert fel["gamma_gap"] <= TAIL_FIT_RTOL, fel
+    assert fel["mean_gap"] <= FEL_MEAN_RTOL, fel
+    assert fel["launches"].get("gram", 0) > 0, fel
+    (prot, (Xp, Xh)), walls["protein"] = synced(lambda: protein_run(dev))
+    out["protein"] = prot
+    print(f"  20.3 ProteinBenchmark.synthetic(dim={PROTEIN_DIM}, "
+          f"n={PROTEIN_N}), a GP on its one-hot codes (d = "
+          f"{Xp.shape[1]}): held-out RMSE over the truth's std "
+          f"{prot['rmse_over_std']!r} (bar {PROTEIN_RMSE_MAX}); mean "
+          f"{prot['mean_gap']!r} of max|μ64| (bar {BO_MEAN_RTOL}); fit "
+          f"launches {prot['fit']['launches']}")
+    assert prot["rmse_over_std"] <= PROTEIN_RMSE_MAX, prot
+    assert prot["mean_gap"] <= BO_MEAN_RTOL, prot
+    assert prot["fit"]["launches"].get("gram", 0) > 0, prot
+    (core, picks), walls["coreset"] = synced(lambda: coreset_run(dev))
+    out["coreset"] = core
+    print(f"  20.3 coreset_leverage_score_greedy on a {CORESET_GRID}² grid: "
+          f"{core['n']} points, each within {core['slack']!r} of the float64 "
+          f"largest posterior variance given the points before it (bar "
+          f"{CORESET_SLACK_ATOL}); the largest before the last pick "
+          f"{core['var_max_after']!r}; {core['wall_s']!r} s, launches "
+          f"{core['launches']}")
+    assert core["n"] == CORESET_N, core
+    assert core["slack"] <= CORESET_SLACK_ATOL, core
+    assert core["launches"].get("gram", 0) > 0, core
+    gp, ref, _ = bo_models
+    out["ranker"], walls["ranker"] = synced(lambda: ranker_run(dev, gp, ref))
+    rk = out["ranker"]
+    print(f"  20.3 FeatureRanker.one_off_importance on 20.2's GP: "
+          f"{rk['importance']} against float64's {rk['importance_f64']} "
+          f"(gap {rk['gap']!r}, bar {RANKER_RTOL})")
+    assert rk["gap"] <= RANKER_RTOL, rk
+    out["sri"], walls["sri"] = synced(lambda: sri_run(dev))
+    sri = out["sri"]
+    print(f"  20.3 SRI on {SRI_N} rows, d = {SRI_D}: |cos| of the top "
+          f"direction with the index {sri['cos_top']!r} (bar {SRI_COS_MIN}); "
+          f"eigenvalues {sri['eig_gap']!r} of float64's (bar "
+          f"{BO_MEAN_RTOL})")
+    assert sri["cos_top"] >= SRI_COS_MIN and \
+        sri["eig_gap"] <= BO_MEAN_RTOL, sri
+    out["cvae"], walls["cvae"] = synced(lambda: cvae_run(dev))
+    cv = out["cvae"]
+    print(f"  20.3 CVAE, {CVAE_EPOCHS} epochs on {CVAE_N} rows (batch "
+          f"{CVAE_BATCH}): negative ELBO a row {cv['loss_before']!r} -> "
+          f"{cv['loss_after']!r}, {cv['wall_s']!r} s")
+    assert cv["loss_after"] < cv["loss_before"] and \
+        cv["sample_in_unit_box"], cv
+    with tempfile.TemporaryDirectory() as tmp:
+        ck, walls["checkpoint"] = synced(lambda: checkpoint_run(dev, sim,
+                                                                tmp))
+    out["checkpoint"] = ck
+    print(f"  20.3 save_model / load_model of the FEL GP "
+          f"({ck['model_bytes']} bytes): mean_std bitwise "
+          f"{ck['model_bitwise']}; OptimalPositiveBasis round trip: "
+          f"{ck['basis_gap']!r} from the saved basis (another basis "
+          f"{ck['basis_gap_before']!r}), launches {ck['basis_launches']}")
+    assert ck["model_bitwise"], ck
+    assert ck["basis_gap"] <= 1e-6 < ck["basis_gap_before"], ck
+    assert ck["basis_launches"].get("gram_df", 0) > 0, ck
+    out["euler_maruyama"], walls["euler_maruyama"] = synced(
+        lambda: em_run(dev))
+    em = out["euler_maruyama"]
+    print(f"  20.3 euler_maruyama, OU on {EM_PATHS} paths x {EM_STEPS} "
+          f"steps: stationary variance {em['var']!r} against "
+          f"{em['var_want']!r} (gap {em['var_gap']!r}, bar {EM_VAR_RTOL}), "
+          f"{em['wall_s']!r} s")
+    assert em["var_gap"] <= EM_VAR_RTOL, em
+    gamma_fel = float(sim.GP.kernel_object.params_dict["0"]["gamma"])
+    grid = BorelSet(2, np.array([[-1.0, 1.0], [-1.0, 1.0]]), device=dev
+                    ).return_discretization(CORESET_GRID)
+    shapes = (("FEL K(x, x)", sim.x / gamma_fel, sim.x / gamma_fel),
+              ("protein K(x, x)", Xp / PROTEIN_GAMMA, Xp / PROTEIN_GAMMA),
+              ("protein K(held, x)", Xh / PROTEIN_GAMMA, Xp / PROTEIN_GAMMA),
+              ("coreset K(grid, picks)", grid / CORESET_GAMMA,
+               picks / CORESET_GAMMA))
+    errs = {"gram": max(scaled_gram_check(f"20 {label}", a, b, "se", 1.5)
+                        for label, a, b in shapes),
+            "gram_df": ck["gram_df_err"]}
+    out["kernel_errs"] = errs
+    return out, walls
+
+
+def phase20(dev):
+    """Phase 20's sub-phases: ({name: record}, {name: wall in s}) and the
+    launch counts of each counted run."""
+    out, walls = {}, {}
+    out["20.1 linalg"], walls["20.1 linalg"] = synced(
+        lambda: linalg_tail_phase(dev))
+    (out["20.2 bo"], models), walls["20.2 bo"] = synced(
+        lambda: bo_tail_phase(dev))
+    (rest, rest_walls), walls["20.3 rest"] = synced(
+        lambda: rest_phase(dev, models))
+    out["20.3 rest"] = rest
+    walls |= {f"20.3 {k}": v for k, v in rest_walls.items()}
+    l1, b2 = out["20.1 linalg"], out["20.2 bo"]
+    counts = {"20.1 gram": l1["gram"]["launches"],
+              "20.1 solve_psd": l1["solve_psd"]["launches"],
+              "20.2 bo loop": b2["bo"]["launches"],
+              "20.2 optimize": b2["optimize"]["launches"],
+              "20.3 fel": rest["fel"]["launches"],
+              "20.3 protein fit": rest["protein"]["fit"]["launches"],
+              "20.3 protein mean_std": rest["protein"]["mean_std"][
+                  "launches"],
+              "20.3 coreset": rest["coreset"]["launches"],
+              "20.3 ranker": rest["ranker"]["launches"],
+              "20.3 basis": rest["checkpoint"]["basis_launches"]}
+    errs = {"gram": max(l1["gram_err"], b2["gram_err"],
+                        rest["kernel_errs"]["gram"]),
+            "gram_df": rest["kernel_errs"]["gram_df"]}
+    total = sum(walls[k] for k in ("20.1 linalg", "20.2 bo", "20.3 rest"))
+    print(f"  phase 20 walls (s): {walls}; in all {total!r} s")
+    return out, walls, counts, errs
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
@@ -5823,6 +6522,14 @@ def main(argv=None) -> int:
         "19.4 GammaContProcess": phase19_rec["19.4 gamma_process"]["launches"]}
     walls |= {f"phase19 {k}": v for k, v in phase19_walls.items()}
 
+    print("== phase 20: the library's tail (linalg's remaining functions, "
+          "Bayesian optimisation over the test functions through configs, "
+          "FelSimulator, ProteinBenchmark, the coreset, FeatureRanker, SRI, "
+          "the CVAE, the checkpoints, euler_maruyama)")
+    phase20_rec, phase20_walls, sub_counts20, errs20 = phase20(dev)
+    torch.cuda.empty_cache()
+    walls |= {f"phase20 {k}": v for k, v in phase20_walls.items()}
+
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": REPLACES[name][0],
          "replaces": REPLACES[name][1], "tier": launches[name][0],
@@ -5840,6 +6547,9 @@ def main(argv=None) -> int:
                               if c.get(name)},
          "phase19_launches": {sub: c[name] for sub, c in sub_counts19.items()
                               if c.get(name)},
+         "phase20_launches": {sub: c[name] for sub, c in sub_counts20.items()
+                              if c.get(name)},
+         **({"phase20_max_abs_err": errs20[name]} if name in errs20 else {}),
          **({"phase19_shapes": mkl19["kernels"][name]}
             if name in mkl19["kernels"] else {}),
          **({"l1_family": {
@@ -5892,7 +6602,7 @@ def main(argv=None) -> int:
         "exact_hyperfit": {"config1": fit_se, "config1_laplace": fit_laplace,
                            "ard_4096": fit_ard, "sample_256": sampled},
         "phase15": phase15, "phase16": phase16, "phase17": phase17,
-        "phase18": phase18, "phase19": phase19_rec}
+        "phase18": phase18, "phase19": phase19_rec, "phase20": phase20_rec}
     print(json.dumps(record))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,8 @@
 """Carry hyperparameters and fitted state (exact GP, iterative GP, online
 GP, embeddings, feature GPs, Nyström features, positive bases, Poisson,
 link, log-linear, MBR and Bernoulli rate estimators, the SGCP's variational
-parameters, a multiple-kernel learner's fit) from the JAX package to the
-port.
+parameters, a multiple-kernel learner's fit, a CVAE's weights) from the
+JAX package to the port.
 
 Inputs are numpy arrays (or anything with ``__array__``, such as a JAX
 array); nothing here imports JAX.
@@ -272,3 +272,22 @@ def load_mkl_state(mkl_port, x, y, alphas, L=None, A=None):
         mkl_port.L, mkl_port.y)
     mkl_port.fitted = True
     return mkl_port
+
+
+def cvae_params_from_jax(params_numpy):
+    """The port `CVAE`'s state dict from the JAX `CVAE.params` ({"enc":
+    {"params": {"Dense_0": {"kernel", "bias"}, …}}, "dec": …}, as numpy):
+    each flax kernel (in, out) becomes a `Linear` weight (out, in). Load
+    it with `cvae.load_state_dict`, which casts to the model's dtype."""
+    layers = {"enc": ("hidden", "mu", "logvar"), "dec": ("hidden", "out")}
+    state = {}
+    for part, names in layers.items():
+        dense = params_numpy[part]
+        dense = dense.get("params", dense)
+        for i, name in enumerate(names):
+            p = dense[f"Dense_{i}"]
+            state[f"{part}.{name}.weight"] = torch.as_tensor(
+                np.array(p["kernel"]).T.copy())
+            state[f"{part}.{name}.bias"] = torch.as_tensor(
+                np.array(p["bias"]))
+    return state

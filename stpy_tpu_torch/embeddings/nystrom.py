@@ -30,6 +30,7 @@ from stpy_tpu_torch.config import as_tensor
 from stpy_tpu_torch.embeddings.base import Embedding
 from stpy_tpu_torch.embeddings.positive import PositiveEmbedding
 from stpy_tpu_torch.linalg import cho_solve, safe_cholesky, symsqrt
+from stpy_tpu_torch.utils.checkpoint import load_pytree, save_pytree
 
 # the landmark eigenvalue cut of stpy_tpu/embeddings/nystrom.py:142
 EIG_CUT = 1e-14
@@ -291,17 +292,26 @@ class PositiveNystromEmbeddingBump(PositiveEmbedding):
 
 
 class OptimalPositiveBasis(PositiveNystromEmbeddingBump):
-    """Data-optimal positive basis with disk save/load of the learned
-    basis. Saving and loading need the checkpoint format of
-    stpy_tpu/utils/checkpoint.py, which comes with ROADMAP Queue 1 item 12;
-    `convert.load_positive_embedding_state` carries a basis across."""
+    """Data-optimal positive basis with disk save and load of the learned
+    basis: its grid and the basis functions' values there, in the
+    checkpoint layout of utils/checkpoint.py (the JAX package's, so a
+    basis saved by either package loads in the other)."""
 
     def save_embedding(self, path):
-        raise NotImplementedError(
-            "OptimalPositiveBasis.save_embedding needs utils/checkpoint "
-            "(ROADMAP Queue 1 item 12)")
+        xg = self.GP.x
+        save_pytree(path, {"grid": xg, "basis": self.GP.embed(xg)})
 
     def load_embedding(self, path):
-        raise NotImplementedError(
-            "OptimalPositiveBasis.load_embedding needs utils/checkpoint "
-            "(ROADMAP Queue 1 item 12)")
+        """Replace the basis by the saved one, interpolated linearly along
+        the first coordinate between the saved grid's points; Γ is
+        recomputed on the next use."""
+        dat = load_pytree(path, device=self.device)
+        xg = dat["grid"].to(self.dtype)
+        basis = dat["basis"].to(self.dtype)
+        order = torch.argsort(xg[:, 0])
+        xg_s, basis_s = xg[order, 0].contiguous(), basis[order]
+        self.GP._embed = lambda q: _interp_columns(
+            as_tensor(q, device=self.device, dtype=self.dtype)
+            .reshape(-1, self.d)[:, 0].contiguous(), xg_s, basis_s)
+        self.precomp = False
+        return self

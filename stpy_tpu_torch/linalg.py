@@ -13,10 +13,14 @@ returned flag, never raised.
 The `precision`, `precision_bwd`, `nb` and `leaf_inv` arguments exist for
 signature parity and have no effect: they pick the TPU's bf16-pass count and
 blocking, while the card computes in IEEE f32 / f64 (TF32 is off, see
-config.py). Of the rank-1 updates (stpy_tpu/linalg.py:395-446) only
-`woodbury_inv_update` is ported, with its caller models/feature_gp.py;
-`symsqrt` comes with embeddings/nystrom.py, `power_iteration` with
-inference/langevin.py.
+config.py). The exceptions are the functions whose blocking is their
+point: `chol_recursive` factors by divide and conquer on `nb`-sized leaves,
+`diag_block_invs` inverts the `nb`-sized diagonal blocks, and
+`tri_solve_chunked` solves `chunk` columns at a time (on the TPU to bound
+its memory; here one trsm already holds nothing beyond its output).
+The rank-1 updates (`chol_rank1_update`, `woodbury_inv_update`,
+`schur_complement_extend`) are O(n²); `symsqrt` and `power_iteration`
+serve the embeddings and the samplers.
 """
 
 from __future__ import annotations
@@ -144,8 +148,120 @@ def cho_solve_blocked(L, b, nb: int = 512, precision=None, leaf_inv=None,
     return torch.cholesky_solve(b, L, upper=False)
 
 
+def tri_solve_blocked_t(L, B, nb: int = 512, precision=None, leaf_inv=None):
+    """Solve Lᵀ X = B (backward substitution) for lower L: the second half
+    of `cho_solve_blocked`, one cuBLAS trsm on the card. `nb`, `precision`
+    and `leaf_inv` have no effect (see the module docstring)."""
+    return torch.linalg.solve_triangular(L.T, B, upper=True)
+
+
+def diag_block_invs(L, nb: int):
+    """Inverses of the (nb, nb) diagonal blocks of lower-triangular L (n a
+    multiple of nb) as one (n/nb, nb, nb) tensor: a single batched
+    triangular solve."""
+    k = L.shape[0] // nb
+    blocks = torch.diagonal(L.reshape(k, nb, k, nb), dim1=0, dim2=2)
+    blocks = blocks.permute(2, 0, 1)
+    eye = torch.eye(nb, dtype=L.dtype, device=L.device).expand(k, nb, nb)
+    return torch.linalg.solve_triangular(blocks, eye, upper=False)
+
+
+def _pad_identity(K, pad):
+    """K in the top-left corner of an (n + pad)² matrix whose other
+    diagonal entries are 1 and other entries 0."""
+    n = K.shape[0]
+    Kp = torch.zeros((n + pad, n + pad), dtype=K.dtype, device=K.device)
+    Kp[:n, :n] = K
+    Kp.diagonal()[n:] = 1.0
+    return Kp
+
+
+def _chol_rec(A, nb, out):
+    """Writes the lower factor of A into `out` (zero above the diagonal):
+    L11 = chol(A11), L21ᵀ = L11⁻¹ A12, L22 = chol(A22 − L21 L21ᵀ), the
+    Schur complement formed in float64 and rounded once to A's dtype."""
+    n = A.shape[0]
+    k = n // nb
+    if k <= 1:
+        out.copy_(_cholesky(A))
+        return
+    h = (k // 2) * nb
+    _chol_rec(A[:h, :h], nb, out[:h, :h])
+    L21T = torch.linalg.solve_triangular(out[:h, :h], A[:h, h:], upper=False)
+    out[h:, :h] = L21T.T
+    W = L21T.to(torch.float64)
+    del L21T
+    S = torch.addmm(A[h:, h:].to(torch.float64), W.T, W,
+                    alpha=-1.0).to(A.dtype)
+    del W
+    _chol_rec(S, nb, out[h:, h:])
+
+
+def chol_recursive(K, nb: int = 2048, precision=None):
+    """Lower Cholesky factor by divide and conquer on (nb, nb) leaves:
+    the leaves are `cholesky_ex`, the panels one triangular solve each and
+    the Schur update one product, so nearly all n³/3 operations are GEMMs.
+    n is padded up to a multiple of nb with the identity, as the JAX
+    package does. A leaf that fails is NaN-filled, and the NaNs run on
+    through every later panel and leaf, as with `chol_dense`: the factor
+    succeeded when it is all finite. `precision` has no effect.
+
+    The Schur update runs in float64 whatever K's dtype. Its one product
+    sums n/2 terms that cancel A22 down to the noise floor (an SE Gram's
+    Schur complement is ~s²), and in f32 that sum's rounding put the
+    factor's backward error ‖K − LLᵀ‖/‖K‖ at 3.1e-6 against cuSOLVER's
+    8.5e-7 (H100, n = 16384, bench.py's Gram); in float64, 6.9e-7. On the
+    card DGEMM's peak is f32's, so the update costs about the same."""
+    n = K.shape[0]
+    pad = (-n) % nb
+    A = _pad_identity(K, pad) if pad else K
+    out = torch.zeros_like(A)
+    _chol_rec(A, nb, out)
+    return out[:n, :n] if pad else out
+
+
+def tri_solve_chunked(L, B, chunk: int = 1024, lower: bool = True):
+    """Triangular solve L X = B with a wide right-hand side, `chunk`
+    columns at a time. Each chunk is copied into its columns of one
+    column-major output and solved there in place, so the solve holds
+    nothing beyond its output (as torch's single solve does: its peak is
+    this one's, PERF.md §6)."""
+    n, k = B.shape
+    if k <= chunk:
+        return torch.linalg.solve_triangular(L, B, upper=not lower)
+    out = torch.empty((k, n), dtype=B.dtype, device=B.device).T
+    for j in range(0, k, chunk):
+        torch.linalg.solve_triangular(L, B[:, j:j + chunk], upper=not lower,
+                                      out=out[:, j:j + chunk])
+    return out
+
+
+def solve_psd(K, b, jitter: float | None = None):
+    """One-shot PSD solve; returns (x, CholResult) of `safe_cholesky`."""
+    res = safe_cholesky(K, jitter)
+    return cho_solve(res.L, b), res
+
+
 def logdet_from_chol(L):
     return 2.0 * torch.sum(torch.log(torch.diagonal(L)))
+
+
+def chol_rank1_update(L, v):
+    """Cholesky factor of L Lᵀ + v vᵀ in O(n²): a Givens-style sweep over
+    the columns, each step touching only the rows below its diagonal.
+    Returns a new factor; L and v are not modified."""
+    L, v = L.clone(), v.clone()
+    n = L.shape[0]
+    for k in range(n):
+        Lkk, vk = L[k, k], v[k]
+        r = torch.sqrt(Lkk * Lkk + vk * vk)
+        c, s = r / Lkk, vk / Lkk
+        L[k, k] = r
+        if k + 1 < n:
+            col = (L[k + 1:, k] + s * v[k + 1:]) / c
+            v[k + 1:] = c * v[k + 1:] - s * col
+            L[k + 1:, k] = col
+    return L
 
 
 def woodbury_inv_update(Vinv, u):
@@ -154,6 +270,23 @@ def woodbury_inv_update(Vinv, u):
     Vu = Vinv @ u
     denom = 1.0 + u @ Vu
     return Vinv - torch.outer(Vu, Vu) / denom
+
+
+def schur_complement_extend(Kinv, k_new, k_nn):
+    """Inverse of the (n+1)² Gram from the n² inverse `Kinv`, the new
+    column `k_new` and the new diagonal entry `k_nn` (the dual rank-1
+    growth). A Schur complement s below 1e-12 in magnitude is taken as
+    1e-12."""
+    a = Kinv @ k_new
+    s = k_nn - k_new @ a
+    s = torch.where(torch.abs(s) < 1e-12, torch.full_like(s, 1e-12), s)
+    n = Kinv.shape[0]
+    out = torch.empty((n + 1, n + 1), dtype=Kinv.dtype, device=Kinv.device)
+    torch.add(Kinv, torch.outer(a, a) / s, out=out[:n, :n])
+    out[:n, n] = -a / s
+    out[n, :n] = -a / s
+    out[n, n] = 1.0 / s
+    return out
 
 
 def power_iteration(A, iters: int = 50, generator=None):

@@ -32,7 +32,8 @@ methods, and where the JAX method takes a `key` the port takes a
 `torch.Generator` (`generator=`). `optimize_params(type="groups")` searches
 the additive group structures (`Estimator._optimize_discrete`), and
 `type="covariance" | "rots"` fits a full-covariance kernel's `cov` on the
-PSD or Stiefel manifold (opt/manifold.py).
+PSD or Stiefel manifold (opt/manifold.py). The plots come from the
+`viz.RandomProcess` mixin, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -66,6 +67,7 @@ from stpy_tpu_torch.opt.manifold import optimize_psd, optimize_stiefel
 from stpy_tpu_torch.opt.prox import fista_prox_backtracking
 from stpy_tpu_torch.opt.scalar import bisection
 from stpy_tpu_torch.utils.groups import generate_groups
+from stpy_tpu_torch.viz import RandomProcess
 
 
 def _softplus(x):
@@ -74,7 +76,7 @@ def _softplus(x):
     return torch.logaddexp(x, torch.zeros_like(x))
 
 
-class GaussianProcess(Estimator):
+class GaussianProcess(Estimator, RandomProcess):
     def __init__(
         self, gamma=1.0, s=0.001, kappa=1.0,
         kernel_name="squared_exponential", diameter=1.0, groups=None,

@@ -25,8 +25,7 @@ benchmarks/run_all.py config 2 (cond V = 5.6e4) the f32 mean is off by
 1.6e-3 of max|μ| without the step and by 2.8e-7 with it, against float64
 (tools/feature_f32_gap.py on the CPU). In float64 the step moves θ̂ by
 rounding only. The variance and the θ draws keep V⁻¹ as the reference.
-`viz.RandomProcess` (plotting) is ROADMAP Queue 1 item 12 and is left out,
-as for the port's `GaussianProcess`.
+The plots come from the `viz.RandomProcess` mixin, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -46,9 +45,10 @@ from stpy_tpu_torch.linalg import (
 from stpy_tpu_torch.models.estimator import Estimator
 from stpy_tpu_torch.opt.lbfgs import minimize_lbfgs
 from stpy_tpu_torch.opt.prox import fista_backtracking, project_l2_ball
+from stpy_tpu_torch.viz import RandomProcess
 
 
-class KernelizedFeatures(Estimator):
+class KernelizedFeatures(Estimator, RandomProcess):
     def __init__(
         self, embedding, m, s=0.001, lam=1.0, d=1, diameter=1.0,
         theta_norm=1.0, verbose=True, groups=None, bounds=None, scale=1.0,

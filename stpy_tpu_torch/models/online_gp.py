@@ -18,7 +18,8 @@ state (their `data_ptr()` stay fixed across adds):
 
 The incremental factor follows the batch Cholesky's recurrence, so the
 posterior is `GaussianProcess`'s to rounding. Its cross Grams go through
-the Gram kernel (csrc/gram.cu on the card).
+the Gram kernel (csrc/gram.cu on the card). The plots come from the
+`viz.RandomProcess` mixin.
 """
 
 from __future__ import annotations
@@ -26,9 +27,10 @@ from __future__ import annotations
 import torch
 
 from stpy_tpu_torch.config import as_tensor
+from stpy_tpu_torch.viz import RandomProcess
 
 
-class OnlineGP:
+class OnlineGP(RandomProcess):
     def __init__(self, kernel_object, s=0.1, capacity=1024, d=1):
         self.kernel_object = kernel_object
         self.device = kernel_object.device

@@ -177,15 +177,6 @@ def test_positive_nystrom_basis_on_the_jax_basis_matches_jax():
         assert rel(a, b) < RTOL
 
 
-def test_optimal_positive_basis_io_raises_naming_the_roadmap():
-    _, tk = kernels(1)
-    T = tn.OptimalPositiveBasis(1, 3, kernel_object=tk, samples=10, **F64)
-    for call in (T.save_embedding, T.load_embedding):
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP Queue 1 item 12"):
-            call("basis.npz")
-
-
 def test_f32_basis_takes_its_chain_from_the_double_float_grid_gram():
     """The port's departure: an f32 kernel's grid Gram enters the float64
     pinv/symsqrt chain as the double-float Gram, not rounded to f32. At
