@@ -87,7 +87,18 @@ against float64), Bayesian optimisation over the test functions
 10000 candidates, and StybTangBenchmark.optimize) against float64 refits,
 and FelSimulator, ProteinBenchmark, the greedy coreset, FeatureRanker,
 SRI, the CVAE, save_model / load_model, the OptimalPositiveBasis round
-trip and euler_maruyama, with gram and gram_df held at their shapes there.
+trip and euler_maruyama, with gram and gram_df held at their shapes there;
+then (phase 21) the multi-device tier on a one-rank NCCL mesh that
+make_mesh starts (sharded_gram bit for bit gram, distributed_evidence
+against the exact evidence at config 1, a 64-restart restart_farm,
+DistributedExactGP's three factorizations against float64 with per-rank
+peaks, IterativeGP's mesh tiers at n = 32768 (lazy bit for bit the
+one-device tier without a preconditioner, chunked product and Laplace,
+dense block-Jacobi, double), fit_feature_gp_sharded on config 3) and the
+exact GP's memory layouts at n = 32768 (fit and predict peaks of the
+jitter ladder, fixed jitter, "recompute" and fold_noise), each kernel it
+launches held to its plain version at one rank's shapes and at a 4-rank
+run's (n/4, n) row block.
 Phase 2c
 holds both matrix-free kernels in their derivative
 shapes ("dk_sq", "dk") too, and gram_matvec's backward against float64
@@ -140,7 +151,7 @@ from stpy_tpu_torch.ops.chol_leaf import (
     MAX_LEAF, chol_leaf, chol_leaf_, chol_leaf_grid, chol_leaf_plain,
 )
 from stpy_tpu_torch.ops.gemv_df import gemv_df, gemv_df_plain
-from stpy_tpu_torch.kernels.df_plan import df_gram_from_desc
+from stpy_tpu_torch.kernels.df_plan import df_atom_desc, df_gram_from_desc
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from stpy_tpu_torch.domains import BorelSet, HierarchicalBorelSets
@@ -175,8 +186,10 @@ from stpy_tpu_torch.ops.syrk import (
     _leaf_chol_, split_tf32, syrk_update_lower_, syrk_update_lower_plain_,
 )
 from stpy_tpu_torch.parallel import (
-    IterativeGP, evidence_value_and_grad_lazy, evidence_value_and_grad_sum,
-    fit_evidence_lazy,
+    DistributedExactGP, HostShardedLoader, IterativeGP, distributed_evidence,
+    evidence_value_and_grad_lazy, evidence_value_and_grad_sum,
+    fit_evidence_lazy, fit_feature_gp_sharded, make_mesh, restart_farm,
+    sharded_gram,
 )
 from stpy_tpu_torch.parallel import bbmm, iterative
 from stpy_tpu_torch.parallel.lazy_kernel import (
@@ -1066,16 +1079,16 @@ def kernel_checks(dev):
     return err, times
 
 
-def qform_error(Th, Tl, W0k, W0a, Bh, Bl):
+def qform_error(Th, Tl, W0k, W0a, Bh, Bl, s=S):
     """(max |Δq|, max |Δq| / scale) of the kernel against its plain version,
     scale = Σ_a |W0a|·(2|B| + |A|·|W0k| + s²|W0a|)."""
-    qh, ql = qform_refined_strip(Th, Tl, W0k, W0a, Bh, Bl, S)
-    ph, pl = qform_df_plain(Th, Tl, W0k, W0a, Bh, Bl, S * S)
+    qh, ql = qform_refined_strip(Th, Tl, W0k, W0a, Bh, Bl, s)
+    ph, pl = qform_df_plain(Th, Tl, W0k, W0a, Bh, Bl, s * s)
     diff = (qh.double() + ql.double() - ph.double() - pl.double()).abs()
     del qh, ql, ph, pl
     Wa = W0a.double().abs()
     AW = (Th.double() + Tl.double()).abs() @ W0k.double().abs()
-    scale = (Wa * (2 * (Bh.double() + Bl.double()).abs() + AW + S * S * Wa)).sum(0)
+    scale = (Wa * (2 * (Bh.double() + Bl.double()).abs() + AW + s * s * Wa)).sum(0)
     return float(diff.max()), float((diff / scale).max())
 
 
@@ -3018,12 +3031,17 @@ def nonzero(counts):
 
 def scaled_gram_check(label, xs, ys, fam, nu):
     """gram at a phase-15 shape (scaled coordinates) against its plain
-    version in f32 and float64 (phase 2's bars). Returns the f32 error."""
+    version in f32 and float64 (phase 2's bars), the plain versions in row
+    blocks of 4096 (a 32768² float64 Matérn holds several n² temporaries).
+    Returns the f32 error."""
     K = gram_scaled(xs, ys, 1.0, fam, nu)
-    e = float((K - gram_plain(xs, ys, 1.0, fam, nu)).abs().max())
-    e64 = float((K.double() - gram_plain(xs.double(), ys.double(), 1.0, fam,
-                                         nu)).abs().max())
-    del K
+    e = e64 = 0.0
+    for r in range(0, xs.shape[0], 4096):
+        Kr, xr = K[r:r + 4096], xs[r:r + 4096]
+        e = max(e, float((Kr - gram_plain(xr, ys, 1.0, fam, nu)).abs().max()))
+        e64 = max(e64, float((Kr.double() - gram_plain(
+            xr.double(), ys.double(), 1.0, fam, nu)).abs().max()))
+    K = Kr = None
     torch.cuda.empty_cache()
     print(f"    gram {fam}{'' if fam == 'se' else nu} {label} "
           f"{xs.shape[0]}x{ys.shape[0]} d={xs.shape[1]}: max abs err {e!r} "
@@ -5984,6 +6002,506 @@ def phase20(dev):
     return out, walls, counts, errs
 
 
+# Phase 21: the multi-device tier (parallel/{mesh, blocked, data}, the mesh
+# tiers of IterativeGP and lazy_kernel) on a one-rank mesh whose NCCL group
+# make_mesh starts (the card's machine has one GPU), and the exact GP's
+# memory modes (fold_noise, strip_fold, jitter_ladder="recompute"). Each
+# kernel it launches is held against its plain version at the shapes it
+# launches it with on one rank, and at one (n/4, n) row block at a nonzero
+# global offset, the shape a 4-rank run hands each rank (MESH_RANKS).
+MESH_RANKS = 4
+FARM_RESTARTS, FARM_LR = 64, 0.1
+# 21.1: the restart farm's vmapped batch against the same steps one by one
+# (float64; a batched Cholesky rounds apart from a single one)
+FARM_RTOL = 1e-8
+# 21.1: distributed_evidence against the port's exact evidence at config 1
+# (both factor the f32 Gram in float64)
+MESH_EVIDENCE_RTOL = 1e-10
+# 21.2: DistributedExactGP, "panels" at bench.py's n, "masked" and "rec" at
+# MESH_GP_SMALL_N, MESH_GP_T test points, held at the single tier's bars
+MESH_GP_SMALL_N, MESH_GP_T = 8192, 1024
+MESH_MEAN_RTOL, MESH_VAR_RTOL = 1e-4, 1e-2
+# 21.3 and 21.5: phase 8's n = 32768 data and kernel at MESH_T test points
+# (one 128-column block of the exact variance's block CG); the f32 mesh
+# tiers' float64 residual (phase 8's lazy fits reach ~1e-5) and the double
+# tier's mean against dense float64
+MESH_T = 128
+MESH_RESIDUAL_MAX = 1e-3
+MESH_DOUBLE_MEAN_RTOL = 1e-6
+# 21.4: run_all.py config 3's 50 000 rows in batches of DATA_BATCH through
+# fit_feature_gp_sharded on the landmark embedding of 16.2's model,
+# against the in-memory fit on the same embedding, both over max|μ64|
+DATA_BATCH = 10_000
+DATA_MEAN_RTOL = 1e-4
+# 21.5: the double tier's layouts at n = 32768 (fit and predict peaks); the
+# means against dense float64 at the double tier's bar
+FOLD_MEAN_RTOL = 1e-6
+SINGLE_LAYOUTS = (("ladder", dict()),
+                  ("recompute", dict(jitter_ladder="recompute")))
+FOLD_LAYOUTS = (("ladder", dict(), (0, 1)),
+                ("fixed jitter", dict(jitter_ladder=False), (0,)),
+                ("recompute", dict(jitter_ladder="recompute"), (0,)),
+                ("fold_noise", dict(jitter_ladder=False, fold_noise=True),
+                 (0, 1)))
+
+
+def row_block(n, ranks=MESH_RANKS):
+    """The rows of the second of `ranks` equal blocks: a rank's block at a
+    nonzero global offset."""
+    nl = n // ranks
+    return slice(nl, 2 * nl)
+
+
+def farm_evidence(x, y, s):
+    """Config 1's negative log evidence in float64 as a function of log γ,
+    by plain torch ops (the farm vmaps it)."""
+    sq = (x - x.T) ** 2
+    eye = torch.eye(x.shape[0], dtype=x.dtype, device=x.device)
+
+    def nll(log_gamma):
+        K = torch.exp(-0.5 * sq / torch.exp(2.0 * log_gamma)) + s * s * eye
+        L = torch.linalg.cholesky(K)
+        alpha = torch.cholesky_solve(y, L)
+        return 0.5 * (y.T @ alpha)[0, 0] + torch.sum(
+            torch.log(torch.diagonal(L)))
+
+    return nll
+
+
+def mesh_evidence(kernel, mesh, gamma, s, x, y):
+    """distributed_evidence's value and its derivative in log γ."""
+    t = torch.tensor(math.log(gamma), dtype=torch.float64,
+                     device=kernel.device, requires_grad=True)
+    f = distributed_evidence(kernel, mesh)({"0": {"gamma": torch.exp(t)}},
+                                           s, x, y)
+    (g,) = torch.autograd.grad(f, t)
+    return float(f.detach()), float(g)
+
+
+def mesh_basics_phase(dev, mesh):
+    """21.1: sharded_gram bitwise against gram, distributed_evidence
+    against the exact evidence, a restart farm of evidence steps."""
+    out = {}
+    x, _, _ = bench_data(dev)
+    k = KernelFunction(kernel_name="squared_exponential", gamma=GAMMA, d=D,
+                       device=dev)
+    K, wall, counts = counted(lambda: sharded_gram(
+        lambda a, b: k.eval_params(k.params_dict, a, b), x, mesh))
+    same = torch.equal(K.to_local(), k.eval_params(k.params_dict, x, x))
+    del K
+    torch.cuda.empty_cache()
+    print(f"  21.1 sharded_gram, n = {N}, d = {D}: local rows "
+          f"{N}x{N}, bit for bit gram's: {same}; {wall!r} s, launches "
+          f"{nonzero(counts)}")
+    assert same and counts["gram"] > 0, counts
+    out["sharded_gram"] = {"bitwise": same, "wall_s": wall,
+                           "launches": nonzero(counts)}
+    xc, yc = config1_data()
+    gamma, s = CONFIG1_GP["gamma"], CONFIG1_GP["s"]
+    kc = KernelFunction(kernel_name="squared_exponential", gamma=gamma, d=1,
+                        device=dev)
+    xt_, yt_ = (torch.as_tensor(a, dtype=torch.float32, device=dev)
+                for a in (xc, yc))
+    (val, der), wall, counts = counted(
+        lambda: mesh_evidence(kc, mesh, gamma, s, xt_, yt_))
+    gp = GaussianProcess(kernel=kc, s=s)
+    gp.x, gp.y = xt_, yt_.reshape(-1, 1)
+    ref = evidence_and_grad(gp, gamma)
+    gaps = (abs(val - ref[0]) / abs(ref[0]), abs(der - ref[1]) / abs(ref[1]))
+    print(f"  21.1 distributed_evidence at config 1 (n = {CONFIG1_N}, γ = "
+          f"{gamma}, s = {s}): {val!r}, d/dlog γ {der!r}; the exact "
+          f"evidence {ref[0]!r}, {ref[1]!r}; gaps {gaps} (bar "
+          f"{MESH_EVIDENCE_RTOL}); launches {nonzero(counts)}")
+    assert max(gaps) <= MESH_EVIDENCE_RTOL and counts["gram"] > 0, gaps
+    out["evidence"] = {"value": val, "dlog_gamma": der, "exact": ref,
+                       "gaps": gaps, "launches": nonzero(counts)}
+    x64, y64 = (torch.as_tensor(a, dtype=torch.float64, device=dev)
+                for a in (xc, yc))
+    nll = farm_evidence(x64, y64, s)
+    grad_value = torch.func.grad_and_value(nll)
+    lg = torch.linspace(math.log(0.05), math.log(2.0), FARM_RESTARTS,
+                        dtype=torch.float64, device=dev)
+    farm = restart_farm(grad_value, FARM_RESTARTS, mesh, "dp")
+    (g, v), wall = synced(lambda: farm((lg,)))
+    stepped = lg - FARM_LR * g
+    one = torch.stack([torch.stack(grad_value(t)) for t in lg])
+    gap = float(torch.max((torch.stack([g, v], 1) - one).abs()
+                          / one.abs().clamp_min(1e-300)))
+    print(f"  21.1 restart_farm: {FARM_RESTARTS} evidence steps of config 1 "
+          f"over 'dp' (torch.vmap), {wall!r} s; against the steps one by "
+          f"one {gap!r} (bar {FARM_RTOL}); best restart log γ "
+          f"{float(stepped[torch.argmin(v)])!r}")
+    assert gap <= FARM_RTOL and bool(torch.isfinite(stepped).all()), gap
+    out["restart_farm"] = {"wall_s": wall, "gap": gap}
+    return out
+
+
+def mesh_gp_phase(dev, mesh):
+    """21.2: DistributedExactGP, each factorization, against float64."""
+    out = {}
+    x, y, xt = bench_data(dev)
+    xt = xt[:MESH_GP_T]
+    for fac, n in (("panels", N), ("masked", MESH_GP_SMALL_N),
+                   ("rec", MESH_GP_SMALL_N)):
+        xs, ys = x[:n], y[:n]
+        mu64, var64, _ = reference_f64(xs, ys, xt)
+        gp = DistributedExactGP(
+            KernelFunction(kernel_name="squared_exponential", gamma=GAMMA,
+                           d=D, device=dev), s=S, mesh=mesh, factorization=fac)
+        (_, fit_peak), fit_s = synced(lambda: peak_gib(
+            lambda: gp.fit_gp(xs, ys)))
+        reset_launch_counts()
+        ((mu, sd), pred_peak), pred_s = synced(lambda: peak_gib(
+            lambda: gp.mean_std(xt)))
+        pred_counts = launch_counts()
+        errs = posterior_errors(mu, sd, mu64, var64)
+        print(f"  21.2 DistributedExactGP({fac!r}), n = {n}, {MESH_GP_T} "
+              f"test points, panel {gp._nbe}: fit {fit_s!r} s, peak "
+              f"{fit_peak!r} GiB a rank; predict {pred_s!r} s, peak "
+              f"{pred_peak!r} GiB; mean {errs[0]!r}, variance max "
+              f"{errs[1]!r}, median {errs[2]!r} (bars {MESH_MEAN_RTOL}, "
+              f"{MESH_VAR_RTOL}); predict launches {nonzero(pred_counts)}")
+        assert errs[0] <= MESH_MEAN_RTOL and errs[1] <= MESH_VAR_RTOL, errs
+        assert pred_counts["gram"] > 0, pred_counts
+        out[fac] = {"n": n, "fit_s": fit_s, "fit_peak_gib": fit_peak,
+                    "predict_s": pred_s, "predict_peak_gib": pred_peak,
+                    "errors": errs, "panel": gp._nbe,
+                    "predict_launches": nonzero(pred_counts)}
+        del gp, mu, sd
+        torch.cuda.empty_cache()
+    # the fit's launches, on its own counted run
+    gp = DistributedExactGP(KernelFunction(
+        kernel_name="squared_exponential", gamma=GAMMA, d=D, device=dev),
+        s=S, mesh=mesh)
+    _, _, counts = counted(lambda: gp.fit_gp(x, y))
+    out["panels"]["fit_launches"] = nonzero(counts)
+    assert counts["gram"] > 0, counts
+    del gp
+    torch.cuda.empty_cache()
+    return out
+
+
+def kernel_residual(x, y, alpha, s, kern, chunk=GENERAL_CHUNK):
+    """‖y − (K + s²I)α‖/‖y‖ in float64 for `kern(a, b)` (a float64 block of
+    plain ops), one row chunk at a time."""
+    x64, a64 = x.double(), alpha.double().reshape(-1)
+    y64 = y.double().reshape(-1)
+    r = y64 - s * s * a64
+    for r0 in range(0, x64.shape[0], chunk):
+        K = kern(x64[r0:r0 + chunk], x64)
+        r[r0:r0 + chunk] -= K @ a64
+        del K
+    return float(torch.linalg.vector_norm(r) / torch.linalg.vector_norm(y64))
+
+
+def mesh_tier(label, gp, x, y, xt, kern, mean_std=False):
+    """Fit (and serve) one IterativeGP tier, counted; its float64 residual."""
+    def run():
+        gp.fit_gp(x, y)
+        return gp.mean_std(xt) if mean_std else (gp.mean(xt), None)
+
+    (mu, sd), wall, counts = counted(run)
+    resid = kernel_residual(x, y, gp.A, LAZY_S, kern)
+    print(f"  21.3 {label}: {gp.cg_iterations} CG iterations, recurrence "
+          f"{gp.cg_residual!r}, float64 residual {resid!r}; {wall!r} s; "
+          f"launches {nonzero(counts)}")
+    return mu, sd, resid, wall, counts
+
+
+def mesh_iterative_phase(dev, mesh, data, ref):
+    """21.3: the mesh tiers of IterativeGP at n = 32768."""
+    xl, yl, xtl = data
+    mu64, var64 = ref
+    out, counts_out = {}, {}
+    mu, sd, resid, wall, counts = mesh_tier(
+        "lazy mesh tier (SE + Matérn-3/2, no preconditioner)",
+        IterativeGP(lazy_kernel(dev), s=LAZY_S, mesh=mesh, lazy=True),
+        xl, yl, xtl, lazy_kernel_matrix, mean_std=True)
+    one = IterativeGP(lazy_kernel(dev), s=LAZY_S, lazy=True, precond_rank=0)
+    one.fit_gp(xl, yl)
+    mu1 = one.mean(xtl)
+    diff = float((mu - mu1).abs().max())
+    errs = posterior_errors(mu, sd, mu64, var64)
+    print(f"    against the one-device lazy tier at precond_rank=0: mean "
+          f"{diff!r} apart (bit for bit: {torch.equal(mu, mu1)}); against "
+          f"dense float64: mean {errs[0]!r}, variance max {errs[1]!r}")
+    assert torch.equal(mu, mu1) and resid <= MESH_RESIDUAL_MAX, (diff, resid)
+    assert counts["gram_matvec"] > 0 and counts["gram_matmat"] > 0, counts
+    out["lazy"] = {"residual": resid, "wall_s": wall, "one_device_gap": diff,
+                   "errors": errs}
+    counts_out["21.3 lazy"] = counts
+    del one
+    for case, kern in (("product", lambda a, b: (
+            kernel_matrix("se", GENERAL_ATOMS[0][2], a, b)
+            * gram_plain(a / GENERAL_ATOMS[1][2], b / GENERAL_ATOMS[1][2],
+                         1.0, "matern", GENERAL_ATOMS[1][1]))),
+            ("laplace", lambda a, b: kernel_matrix("laplace", LAPLACE_GAMMA,
+                                                   a, b))):
+        mu, _, resid, wall, counts = mesh_tier(
+            f"chunked mesh tier ({case}, chunk {GENERAL_CHUNK})",
+            IterativeGP(general_kernel(dev, case), s=LAZY_S, mesh=mesh,
+                        lazy=True, chunk=GENERAL_CHUNK), xl, yl, xtl, kern)
+        key = "gram" if case == "product" else "gram_l1"
+        assert resid <= MESH_RESIDUAL_MAX and counts[key] > 0, (resid, counts)
+        out[case] = {"residual": resid, "wall_s": wall}
+        counts_out[f"21.3 {case}"] = counts
+        torch.cuda.empty_cache()
+    mu, sd, resid, wall, counts = mesh_tier(
+        "dense block-Jacobi mesh tier", IterativeGP(
+            lazy_kernel(dev), s=LAZY_S, mesh=mesh, lazy=False),
+        xl, yl, xtl, lazy_kernel_matrix, mean_std=True)
+    errs = posterior_errors(mu, sd, mu64, var64)
+    print(f"    against dense float64: mean {errs[0]!r}, variance max "
+          f"{errs[1]!r}")
+    assert resid <= MESH_RESIDUAL_MAX and counts["gram"] > 0, (resid, counts)
+    out["dense"] = {"residual": resid, "wall_s": wall, "errors": errs}
+    counts_out["21.3 dense"] = counts
+    torch.cuda.empty_cache()
+    gp = IterativeGP(lazy_kernel(dev), s=LAZY_S, mesh=mesh, lazy=False,
+                     precision="double")
+    (_, mu), wall, counts = counted(lambda: (gp.fit_gp(xl, yl),
+                                             gp.mean(xtl)))
+    err = mean_error(mu, mu64)
+    resid = kernel_residual(xl, yl, gp._A_df.double().sum(1), LAZY_S,
+                            lazy_kernel_matrix)
+    print(f"  21.3 double mesh tier (dense): {gp.cg_iterations} CG "
+          f"iterations, df residuals {gp.df_residuals}, float64 residual of "
+          f"the df alpha {resid!r}; mean {err!r} of dense float64 (bar "
+          f"{MESH_DOUBLE_MEAN_RTOL}); {wall!r} s; launches {nonzero(counts)}")
+    assert err <= MESH_DOUBLE_MEAN_RTOL, err
+    assert counts["gram_df"] > 0 and counts["gemv_df"] > 0, counts
+    out["double"] = {"mean_err": err, "df_residuals": gp.df_residuals,
+                     "residual": resid, "wall_s": wall}
+    counts_out["21.3 double"] = counts
+    del gp
+    torch.cuda.empty_cache()
+    return out, counts_out
+
+
+def mesh_data_phase(dev, mesh):
+    """21.4: fit_feature_gp_sharded at config 3's n against the in-memory
+    fit on the same (landmark) embedding."""
+    x, y = (torch.tensor(a, device=dev) for a in config3_data())
+    head = x[:CONFIG3_HEAD]
+    nf = NystromFeatures(config3_kernel(dev, torch.float32), m=CONFIG3_M,
+                         approx="uniform", s=CONFIG3_S)
+    nf.fit_gp(x, y)
+
+    def model():
+        return KernelizedFeatures(embedding=nf, m=nf.get_m(), s=CONFIG3_S,
+                                  lam=1.0, primal=True, d=2)
+
+    mem = model()
+    mem.fit_gp(x, y)
+    mu_mem = mem.mean_std(head)[0]
+    loader = HostShardedLoader(lambda lo, hi: (x[lo:hi], y[lo:hi]),
+                               n_local=CONFIG3_N, batch_size=DATA_BATCH,
+                               mesh=mesh)
+    sharded = model()
+    (mu, _), wall, counts = counted(lambda: (
+        fit_feature_gp_sharded(sharded, loader), sharded.mean_std(head))[1])
+    Q = nf.embed(x).double()
+    V = Q.T @ Q + CONFIG3_S ** 2 * torch.eye(Q.shape[1], dtype=Q.dtype,
+                                              device=dev)
+    theta = torch.linalg.solve(V, Q.T @ y.double().reshape(-1, 1))
+    mu64 = (nf.embed(head).double() @ theta)[:, 0]
+    errs = (mean_error(mu, mu64), mean_error(mu_mem, mu64))
+    print(f"  21.4 fit_feature_gp_sharded, config 3 (n = {CONFIG3_N} in "
+          f"{len(loader)} batches of {DATA_BATCH}, m = {nf.get_m()}): "
+          f"{wall!r} s; mean {errs[0]!r} of max|μ64| (the in-memory fit "
+          f"{errs[1]!r}; bar {DATA_MEAN_RTOL}); model.n {sharded.n}; "
+          f"launches {nonzero(counts)}")
+    assert max(errs) <= DATA_MEAN_RTOL and sharded.n == CONFIG3_N, errs
+    del nf, mem, sharded, Q
+    torch.cuda.empty_cache()
+    return {"wall_s": wall, "errors": errs, "batches": len(loader)}
+
+
+def memory_modes_phase(dev, data, ref):
+    """21.5: the double tier at n = 32768, d = 8 (SE + Matérn-3/2): fit and
+    predict peaks of each layout, and the means against dense float64."""
+    xl, yl, xtl = data
+    mu64, var64 = ref
+    out = {}
+    ko = lazy_kernel(dev)
+    for label, strip in (("full", None), ("strips of 4096", 4096)):
+        (_, peak), wall = synced(lambda: peak_gib(lambda: df_gram_from_desc(
+            ko, {}, xl, xl, df_atom_desc(ko), strip_fold=strip)))
+        print(f"  21.5 the composite df Gram at n = {LAZY_N}, {label}: "
+              f"peak {peak!r} GiB, {wall!r} s")
+        out[f"df gram {label}"] = {"peak_gib": peak, "wall_s": wall}
+    for label, kw in SINGLE_LAYOUTS:
+        gp = GaussianProcess(kernel=lazy_kernel(dev), s=LAZY_S, **kw)
+        (_, fit_peak), fit_s = synced(lambda: peak_gib(
+            lambda: gp.fit_gp(xl, yl)))
+        ((mu, sd), pred_peak), pred_s = synced(lambda: peak_gib(
+            lambda: gp.mean_std(xtl)))
+        errs = posterior_errors(mu, sd, mu64, var64)
+        print(f"  21.5 single tier, {label}, n = {LAZY_N}: fit {fit_s!r} s, "
+              f"peak {fit_peak!r} GiB; predict {pred_s!r} s, peak "
+              f"{pred_peak!r} GiB; mean {errs[0]!r}, variance max "
+              f"{errs[1]!r} (bars {MESH_MEAN_RTOL}, {MESH_VAR_RTOL}); "
+              f"jitter {gp.fit_status['jitter_used']!r}")
+        assert gp.fit_status["cholesky_ok"], gp.fit_status
+        assert errs[0] <= MESH_MEAN_RTOL and errs[1] <= MESH_VAR_RTOL, errs
+        out[f"single {label}"] = {
+            "fit_s": fit_s, "fit_peak_gib": fit_peak, "predict_s": pred_s,
+            "predict_peak_gib": pred_peak, "errors": errs}
+        del gp, mu, sd
+        torch.cuda.empty_cache()
+    for label, kw, refines in FOLD_LAYOUTS:
+        for vr in refines:
+            gp = GaussianProcess(kernel=lazy_kernel(dev), s=LAZY_S,
+                                 precision="double", var_refine=vr, **kw)
+            (_, fit_peak), fit_s = synced(lambda: peak_gib(
+                lambda: gp.fit_gp(xl, yl)))
+            reset_launch_counts()
+            ((mu, sd), pred_peak), pred_s = synced(lambda: peak_gib(
+                lambda: gp.mean_std(xtl)))
+            counts = launch_counts()
+            errs = posterior_errors(mu, sd, mu64, var64)
+            var_bar = REFINED_VAR_MAX_RTOL if vr else MESH_VAR_RTOL
+            print(f"  21.5 double tier, {label}, var_refine={vr}, n = "
+                  f"{LAZY_N}: fit {fit_s!r} s, peak {fit_peak!r} GiB; "
+                  f"predict ({MESH_T} points) {pred_s!r} s, peak "
+                  f"{pred_peak!r} GiB; mean {errs[0]!r} (bar "
+                  f"{FOLD_MEAN_RTOL}), variance max {errs[1]!r} (bar "
+                  f"{var_bar}); jitter {gp.fit_status['jitter_used']!r}; "
+                  f"predict launches {nonzero(counts)}")
+            assert gp.fit_status["cholesky_ok"], gp.fit_status
+            assert errs[0] <= FOLD_MEAN_RTOL and errs[1] <= var_bar, errs
+            qform_err = (folded_qform_check(gp, xl, xtl)
+                         if gp._fold_noise and vr else None)
+            out[f"{label} var_refine={vr}"] = {
+                "fit_s": fit_s, "fit_peak_gib": fit_peak,
+                "predict_s": pred_s, "predict_peak_gib": pred_peak,
+                "errors": errs, "predict_launches": nonzero(counts),
+                "qform_df_max_abs_err": qform_err}
+            del gp, mu, sd
+            torch.cuda.empty_cache()
+    return out
+
+
+def folded_qform_check(gp, xl, xtl):
+    """qform_df at fold_noise's call: the train pair carries s² on its
+    diagonal, so the predict passes s = 0; the square (n, n)·(n, t) form at
+    the predict's operands, held against its plain version."""
+    Kh, Kl = gp._df_gram(xtl, xl)                             # (t, n)
+    W0 = torch.cholesky_solve(Kh.T, gp.L).contiguous()        # (n, t)
+    Bh, Bl = Kh.T.contiguous(), Kl.T.contiguous()
+    del Kh, Kl
+    Th, Tl = gp._df_train
+    e, rel = qform_error(Th, Tl, W0, W0, Bh, Bl, s=0.0)
+    print(f"    qform_df at fold_noise's s = 0 call, c = n = {xl.shape[0]}, "
+          f"t = {xtl.shape[0]}: max abs err {e!r}, max err / scale {rel!r} "
+          f"(bar {QFORM_RTOL})")
+    assert rel <= QFORM_RTOL, ("qform_df", "fold_noise", rel)
+    del W0, Bh, Bl, Th, Tl
+    torch.cuda.empty_cache()
+    return e
+
+
+def mesh_kernel_checks(dev, data):
+    """Each kernel of phase 21 against its plain version at the shapes the
+    phase gives it on one rank and at a 4-rank run's (n/4, n) row block at
+    a nonzero offset. Returns {kernel: {shape label: max abs error}}."""
+    xl, _, _ = data
+    x, _, _ = bench_data(dev)
+    errs = {k: {} for k in ("gram", "gram_l1", "gram_df", "gemv_df",
+                            "gram_matvec", "gram_matmat")}
+    gen = torch.Generator(device=dev).manual_seed(21)
+    for label, rows, cols in (
+            (f"{N}x{N}", x, x),
+            (f"rows {row_block(N).start}:{row_block(N).stop} of {N}",
+             x[row_block(N)], x),
+            (f"{N}x{1024} strip", x, x[:1024])):
+        errs["gram"][label] = scaled_gram_check(
+            f"21 {label}", rows / GAMMA, cols / GAMMA, "se", 1.5)
+    n = LAZY_N
+    blk = row_block(n)
+    # the dense mesh tier's rows and 21.5's single tier: each atom's Gram
+    # at p = 1 and at a 4-rank run's row block
+    for label, rows in ((f"{n}x{n}", xl),
+                        (f"rows {blk.start}:{blk.stop} of {n}", xl[blk])):
+        for fam, nu, gamma in LAZY_ATOMS:
+            errs["gram"][f"{fam} {label}"] = scaled_gram_check(
+                f"21 {label}", rows / gamma, xl / gamma, fam, nu)
+    for label, rows in ((f"{GENERAL_CHUNK}x{n}", xl[:GENERAL_CHUNK]),
+                        (f"rows {blk.start}:{blk.stop} of {n}", xl[blk])):
+        errs["gram_l1"][label] = gram_l1_check(f"21 {label}", rows, xl,
+                                               LAPLACE_GAMMA)
+    x64 = xl.double()
+    for label, rows in ((f"4096x{n}", x64[:4096]),
+                        (f"rows {blk.start}:{blk.start + 4096} of {n}",
+                         x64[blk.start:blk.start + 4096])):
+        for fam, nu, gamma in LAZY_ATOMS:
+            e, hi, lo = gram_df_check(f"21 {label}", rows, x64, fam, nu,
+                                      gamma)
+            errs["gram_df"][f"{fam} {label}"] = e
+            v = torch.randn(n, generator=gen, device=dev)
+            errs["gemv_df"][f"{fam} {label}"] = gemv_df_check(
+                f"21 {label}", hi, lo, v, v * EPS32)
+            del hi, lo
+    torch.cuda.empty_cache()
+    V = torch.randn((n, MESH_T), generator=gen, device=dev)
+    for label, rows in ((f"{n}x{n}", xl),
+                        (f"rows {blk.start}:{blk.stop} of {n}", xl[blk])):
+        for fam, nu, gamma in LAZY_ATOMS:
+            xs, ys = rows / gamma, xl / gamma
+            for name, fn, rhs in (("gram_matvec", gram_matvec_scaled, V[:, 0]),
+                                  ("gram_matmat", gram_matmat_scaled, V)):
+                e, rel = matvec_error(fn, xs, ys, rhs, fam, nu)
+                print(f"    {name} {fam} 21 {label}: max abs err {e!r}, "
+                      f"max err / sum|K||v| {rel!r} (bar {matvec_rtol(n)!r})")
+                assert rel <= matvec_rtol(n), (name, label, rel)
+                errs[name][f"{fam} {label}"] = e
+    torch.cuda.empty_cache()
+    return errs
+
+
+def phase21(dev):
+    """Phase 21 on a one-rank NCCL mesh (make_mesh starts the group and the
+    phase destroys it). Returns (record, walls, launch counts, errors)."""
+    import torch.distributed as dist
+
+    mesh = make_mesh(device=dev)
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    assert dist.get_backend() == backend and dist.get_world_size() == 1
+    out, walls, counts = {}, {}, {}
+    try:
+        out["21.1 mesh"], walls["21.1 mesh"] = synced(
+            lambda: mesh_basics_phase(dev, mesh))
+        out["21.2 blocked"], walls["21.2 blocked"] = synced(
+            lambda: mesh_gp_phase(dev, mesh))
+        data = bench_data(dev, LAZY_N, MESH_T)
+        mu64, var64, _ = reference_f64(*data, kern=lazy_kernel_matrix,
+                                       s=LAZY_S, prior_var=2.0)
+        torch.cuda.empty_cache()
+        (out["21.3 iterative"], c3), walls["21.3 iterative"] = synced(
+            lambda: mesh_iterative_phase(dev, mesh, data, (mu64, var64)))
+        out["21.4 data"], walls["21.4 data"] = synced(
+            lambda: mesh_data_phase(dev, mesh))
+        out["21.5 memory modes"], walls["21.5 memory modes"] = synced(
+            lambda: memory_modes_phase(dev, data, (mu64, var64)))
+        errs, walls["21.6 kernels"] = synced(
+            lambda: mesh_kernel_checks(dev, data))
+    finally:
+        dist.destroy_process_group()
+    b1, b2 = out["21.1 mesh"], out["21.2 blocked"]
+    counts = {"21.1 sharded_gram": b1["sharded_gram"]["launches"],
+              "21.1 evidence": b1["evidence"]["launches"],
+              "21.2 panels fit": b2["panels"]["fit_launches"],
+              **{f"21.2 {fac} predict": b2[fac]["predict_launches"]
+                 for fac in ("panels", "masked", "rec")},
+              **{k: nonzero(v) for k, v in c3.items()},
+              **{f"21.5 {k} predict": v["predict_launches"]
+                 for k, v in out["21.5 memory modes"].items()
+                 if "predict_launches" in v}}
+    total = sum(walls.values())
+    print(f"  phase 21 walls (s): {walls}; in all {total!r} s")
+    return out, walls, counts, errs
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
@@ -6530,6 +7048,15 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     walls |= {f"phase20 {k}": v for k, v in phase20_walls.items()}
 
+    print("== phase 21: the multi-device tier on a one-rank NCCL mesh "
+          "(sharded_gram, distributed_evidence, restart_farm, "
+          "DistributedExactGP, IterativeGP's mesh tiers, "
+          "fit_feature_gp_sharded) and the exact GP's memory modes "
+          "(fold_noise, strip_fold, jitter_ladder='recompute') at n = 32768")
+    phase21_rec, phase21_walls, sub_counts21, errs21 = phase21(dev)
+    torch.cuda.empty_cache()
+    walls |= {f"phase21 {k}": v for k, v in phase21_walls.items()}
+
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": REPLACES[name][0],
          "replaces": REPLACES[name][1], "tier": launches[name][0],
@@ -6550,6 +7077,10 @@ def main(argv=None) -> int:
          "phase20_launches": {sub: c[name] for sub, c in sub_counts20.items()
                               if c.get(name)},
          **({"phase20_max_abs_err": errs20[name]} if name in errs20 else {}),
+         "phase21_launches": {sub: c[name] for sub, c in sub_counts21.items()
+                              if c.get(name)},
+         **({"phase21_shapes_max_abs_err": errs21[name]}
+            if name in errs21 else {}),
          **({"phase19_shapes": mkl19["kernels"][name]}
             if name in mkl19["kernels"] else {}),
          **({"l1_family": {
@@ -6602,7 +7133,8 @@ def main(argv=None) -> int:
         "exact_hyperfit": {"config1": fit_se, "config1_laplace": fit_laplace,
                            "ard_4096": fit_ard, "sample_256": sampled},
         "phase15": phase15, "phase16": phase16, "phase17": phase17,
-        "phase18": phase18, "phase19": phase19_rec, "phase20": phase20_rec}
+        "phase18": phase18, "phase19": phase19_rec, "phase20": phase20_rec,
+        "phase21": phase21_rec}
     print(json.dumps(record))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

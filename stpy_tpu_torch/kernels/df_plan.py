@@ -17,9 +17,10 @@ the matrix-free one (parallel/iterative.py). Per atom:
 
 The JAX package needs a jaxpr double-float interpreter (ops/df_interp.py)
 and a node-scanned df Bessel (ops/matern_df.py) for the last two because
-the TPU has no f64; the card has, so neither is ported, nor `strip_fold`.
-Composites fold their pairs in float64 and split again (`df_add`,
-`df_mul`). `gram64` is the float64 Gram of any kernel, on this plan where
+the TPU has no f64; the card has, so neither is ported. Composites fold
+their pairs in float64 and split again (`df_add`, `df_mul`); with
+`strip_fold` the atoms after the first are built and folded in row strips,
+in place. `gram64` is the float64 Gram of any kernel, on this plan where
 the kernel is narrower than float64.
 """
 
@@ -83,31 +84,47 @@ def _generic_df_gram(kernel_object, i, p, a, b):
     return hi, lo
 
 
-def df_gram_from_desc(kernel_object, params_dict, a, b, desc):
-    """(hi, lo) f32 Gram of the (possibly composite) kernel."""
+def _atom_df_gram(kernel_object, i, fam, nu, gkey, group, p, a, b):
+    """(hi, lo) Gram of atom i on rows a against b."""
+    if fam in ("generic", "matern_gen"):
+        return _generic_df_gram(kernel_object, i, p, a, b)
+    gamma = p[gkey]
+    if group is not None:
+        idx = torch.as_tensor(group, device=a.device)
+        a, b = a[:, idx], b[:, idx]
+        if gkey == "ard_gamma":
+            gamma = gamma.reshape(-1)[idx.to(gamma.device)]
+    return gram_df(a, b, gamma, p.get("kappa", 1.0), family=fam, nu=nu)
+
+
+def df_gram_from_desc(kernel_object, params_dict, a, b, desc,
+                      strip_fold=None):
+    """(hi, lo) f32 Gram of the (possibly composite) kernel.
+
+    strip_fold (int, default off): each atom after the first is built in
+    `strip_fold`-row strips, each folded into the accumulated pair's rows
+    in place, so the fold's peak is the pair (2n²) plus one strip and its
+    float64 fold instead of two pairs and the float64 fold of all of them
+    (stpy_tpu/kernels/df_plan.py:96-175; `GaussianProcess(fold_noise=True)`
+    passes 4096). Every entry is computed as without it."""
     outh = outl = None
     for (i, fam, nu, gkey, group, op) in desc:
         p = {**kernel_object.params_dict[str(i)],
              **params_dict.get(str(i), {})}
-        if fam in ("generic", "matern_gen"):
-            Kh, Kl = _generic_df_gram(kernel_object, i, p, a, b)
-        else:
-            gamma = p[gkey]
-            if group is not None:
-                idx = torch.as_tensor(group, device=a.device)
-                a_, b_ = a[:, idx], b[:, idx]
-                if gkey == "ard_gamma":
-                    gamma = gamma.reshape(-1)[idx.to(gamma.device)]
-            else:
-                a_, b_ = a, b
-            Kh, Kl = gram_df(a_, b_, gamma, p.get("kappa", 1.0), family=fam,
-                             nu=nu)
-        if op == "+":
-            outh, outl = df_add(outh, outl, Kh, Kl)
-        elif op == "*":
-            outh, outl = df_mul(outh, outl, Kh, Kl)
-        else:
-            outh, outl = Kh, Kl
+        fold = {"+": df_add, "*": df_mul}.get(op)
+        if (fold is None or not strip_fold
+                or a.shape[0] <= strip_fold):
+            Kh, Kl = _atom_df_gram(kernel_object, i, fam, nu, gkey, group, p,
+                                   a, b)
+            outh, outl = (Kh, Kl) if fold is None else fold(outh, outl, Kh,
+                                                            Kl)
+            continue
+        for r0 in range(0, a.shape[0], strip_fold):
+            kh, kl = _atom_df_gram(kernel_object, i, fam, nu, gkey, group, p,
+                                   a[r0:r0 + strip_fold], b)
+            rows = slice(r0, r0 + kh.shape[0])
+            oh, ol = fold(outh[rows], outl[rows], kh, kl)
+            outh[rows], outl[rows] = oh, ol
     return outh, outl
 
 

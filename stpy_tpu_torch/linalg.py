@@ -18,6 +18,8 @@ point: `chol_recursive` factors by divide and conquer on `nb`-sized leaves,
 `diag_block_invs` inverts the `nb`-sized diagonal blocks, and
 `tri_solve_chunked` solves `chunk` columns at a time (on the TPU to bound
 its memory; here one trsm already holds nothing beyond its output).
+`safe_cholesky_rebuild` runs the jitter ladder on a matrix rebuilt for
+each attempt.
 The rank-1 updates (`chol_rank1_update`, `woodbury_inv_update`,
 `schur_complement_extend`) are O(n²); `symsqrt` and `power_iteration`
 serve the embeddings and the samplers.
@@ -123,6 +125,54 @@ def safe_cholesky(K, jitter: float | None = None, max_tries: int = 6,
                           ok=torch.tensor(False, device=K.device))
     finally:
         diag.copy_(orig)
+
+
+def safe_cholesky_rebuild(build_k, scale, jitter: float | None = None,
+                          max_tries: int = 6, fast: bool = False,
+                          dtype=None) -> CholResult:
+    """Jitter-ladder Cholesky that rebuilds the jittered matrix for each
+    attempt instead of keeping the pre-jitter Gram for the whole ladder
+    (recompute over residency, stpy_tpu/linalg.py:99-150).
+
+    `build_k(j)` returns a fresh K + j·I for an absolute jitter j (from the
+    kernel's inputs, not by indexing a kept K); `scale` is K's mean
+    diagonal (O(n) from `kernel.diag`). The ladder is `safe_cholesky`'s:
+    j = base·scale·10^t for t = 0 … max_tries, base = `jitter` or
+    `default_jitter(dtype)` (dtype: `dtype`, else the scale's, float64 for
+    a number). An attempt holds its fresh matrix and its factor (one
+    `cholesky_ex`, judged by its info code, as `safe_cholesky`'s), and the
+    matrix goes before the next build, so K is never held beside the
+    ladder; a retry costs one more build. With `fast=True` each attempt is
+    `chol_dense(A, fast=True)`. Never raises; `ok` reports success.
+
+    The factor is `cholesky_ex`'s own column-major output, as
+    `safe_cholesky`'s: written over the row-major matrix instead, the
+    double tier's f32 variance at n = 32768 lay 17× further from float64
+    (PERF.md, PR 18)."""
+    scale = torch.as_tensor(scale)
+    dt = dtype if dtype is not None else (
+        scale.dtype if scale.is_floating_point() else torch.float64)
+    base = default_jitter(dt) if jitter is None else jitter
+    scale = torch.where(scale <= 0, torch.ones_like(scale), scale).to(dt)
+    j = torch.tensor(base, dtype=dt, device=scale.device)
+    L = None
+    for t in range(max_tries + 1):
+        if t:
+            j = j * 10.0
+        L = None   # the failed attempt's buffer goes before the next build
+        A = build_k(j * scale)
+        if fast:
+            L = chol_dense(A, fast=True)
+            ok = bool(torch.isfinite(L).all())
+        else:
+            L, info = torch.linalg.cholesky_ex(A)
+            ok = int(info) == 0
+        del A
+        if ok:
+            return CholResult(L=L, jitter=j * scale,
+                              ok=torch.tensor(True, device=L.device))
+    return CholResult(L=L.fill_(float("nan")), jitter=j * scale,
+                      ok=torch.tensor(False, device=L.device))
 
 
 def cho_solve(L, b):

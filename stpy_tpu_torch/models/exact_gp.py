@@ -56,6 +56,7 @@ from stpy_tpu_torch.linalg import (
     chol_jittered,
     logdet_from_chol,
     safe_cholesky,
+    safe_cholesky_rebuild,
     tri_solve,
     tri_solve_blocked,
 )
@@ -99,21 +100,12 @@ class GaussianProcess(Estimator, RandomProcess):
             raise ValueError("fold_noise requires precision='double'")
         if fold_noise and jitter_ladder is not False:
             raise ValueError("fold_noise requires jitter_ladder=False")
-        if jitter_ladder == "recompute":
-            raise NotImplementedError(
-                "jitter_ladder='recompute' is ROADMAP Queue 1 item 13 (ported "
-                "once a memory measurement on the card shows the need)"
-            )
-        if fold_noise:
-            raise NotImplementedError(
-                "fold_noise is ROADMAP Queue 1 item 13 (ported once a memory "
-                "measurement on the card shows the need)"
-            )
         # var_precision and qform_precision pick TPU matmul pass counts;
         # they are accepted for signature parity and have no effect here
         self._precision = precision
         self._var_refine = int(var_refine)   # any value >= 1 acts as 1
         self._jitter_ladder = jitter_ladder
+        self._fold_noise = bool(fold_noise)
         self.s = s
         self.d = d
         self.x = None
@@ -188,6 +180,18 @@ class GaussianProcess(Estimator, RandomProcess):
 
     def _fit_single(self, x, y):
         pd = self.kernel_object.params_dict
+        s2 = self.s * self.s
+        if self._jitter_ladder == "recompute":
+            # each attempt evaluates K + (s² + j)I afresh from (x, params):
+            # the pre-jitter K is never kept beside the ladder
+            def build(j):
+                K = self.kernel_object.eval_params(pd, x, x)
+                K.diagonal().add_(s2 + j)
+                return K
+
+            scale = torch.mean(self.kernel_object.diag(x, pd)) + s2
+            L, jitter, ok = safe_cholesky_rebuild(build, scale)
+            return L, cho_solve(L, y), ok, jitter
         K = self.kernel_object.eval_params(pd, x, x)
         # no (K+K.T)/2: Cholesky reads only the lower triangle and the fused
         # Gram is symmetric by construction. s²I goes onto the fresh Gram's
@@ -197,25 +201,76 @@ class GaussianProcess(Estimator, RandomProcess):
         return L, cho_solve(L, y), ok, jitter
 
     def _df_gram(self, a, b):
+        # in fold_noise's compact layout, atoms after the first fold in
+        # 4096-row strips: 2n² + one strip instead of 4n²
         Kh, Kl = df_gram_from_desc(self.kernel_object,
                                    self.kernel_object.params_dict, a, b,
-                                   self._df_desc)
+                                   self._df_desc,
+                                   strip_fold=4096 if self._fold_noise
+                                   else None)
         # the pair is f32; a float64 model (CPU tests) holds the same values
         return Kh.to(self.dtype), Kl.to(self.dtype)
 
+    def _fold_diagonal(self, Kh, Kl, shift):
+        """Add `shift` to the df diagonal of (Kh, Kl) in place: the sum is
+        formed in float64 and split again, so the pair keeps its value
+        exactly where the JAX package needs TwoSum."""
+        f64 = torch.float64
+        dh, dl = torch.diagonal(Kh), torch.diagonal(Kl)
+        d = dh.to(f64) + dl.to(f64) + shift
+        dh.copy_(d)
+        dl.copy_(d - dh.to(f64))
+
+    def _factor_folded(self, Kh, Kl):
+        """``fold_noise=True``: s² and the jitter go onto the df diagonal of
+        (Kh, Kl) and Kh is factored as it stands, then the jitter comes off
+        again, so no A = Kh + s²I buffer exists (3n² instead of 4n² at the
+        fit's peak) and the pair is the system K + s²I that refinement and
+        the quadratic form see, as in the standard layout
+        (exact_gp.py:220-258)."""
+        s2 = self.s * self.s
+        jit = float(default_jitter(Kh.dtype)
+                    * (torch.mean(torch.diagonal(Kh).to(torch.float64)) + s2))
+        self._fold_diagonal(Kh, Kl, s2 + jit)
+        # cholesky_ex's info instead of `_cholesky`'s NaN fill, which would
+        # hold two more n² buffers (a full_like and the where) at the peak
+        L, info = torch.linalg.cholesky_ex(Kh)
+        ok = info == 0
+        if not bool(ok):
+            L.fill_(float("nan"))
+        self._fold_diagonal(Kh, Kl, -jit)
+        return L, ok, torch.tensor(jit, dtype=self.dtype)
+
     def _fit_double(self, x, y):
         Kh, Kl = self._df_gram(x, x)
-        A = Kh.clone()
-        A.diagonal().add_(self.s * self.s)
-        L, ok, jitter = self._factor(A)
-        del A
+        if self._fold_noise:
+            L, ok, jitter = self._factor_folded(Kh, Kl)
+        elif self._jitter_ladder == "recompute":
+            # Kh stays for the refinement; each attempt rebuilds Kh + (s² +
+            # j)I, so no A is kept across the ladder
+            s2 = self.s * self.s
+
+            def build(j):
+                A = Kh.clone()
+                A.diagonal().add_(s2 + j)
+                return A
+
+            scale = torch.mean(torch.diagonal(Kh)) + s2
+            L, jitter, ok = safe_cholesky_rebuild(build, scale)
+        else:
+            A = Kh.clone()
+            A.diagonal().add_(self.s * self.s)
+            L, ok, jitter = self._factor(A)
+            del A
         # refinement with an EXACT residual y − (Kh + Kl + s²I)·α and alpha
         # carried as a df pair: a single-f32 alpha caps the posterior mean
         # at eps·‖K*‖‖α‖/‖μ‖. The n² product is the df GEMV kernel; the O(n)
         # terms around it run in float64, where the JAX package needs
-        # TwoSum/TwoProd because the TPU has no f64.
+        # TwoSum/TwoProd because the TPU has no f64. fold_noise's pair
+        # carries s² on its diagonal already.
         f64 = torch.float64
-        y64, s2 = y.to(f64), self.s * self.s
+        y64 = y.to(f64)
+        s2 = 0.0 if self._fold_noise else self.s * self.s
         a_h = cho_solve_blocked(L, y)
         a_l = torch.zeros_like(a_h)
         for _ in range(self._df_refine_steps_resolved):
@@ -406,7 +461,9 @@ class GaussianProcess(Estimator, RandomProcess):
                                      self._df_desc)
         W0 = cho_solve_blocked(self.L, Kh.T)                      # (n, t)
         Th, Tl = self._df_train
-        qh, ql = qform_refined(Th, Tl, W0, Kh.T, Kl.T, self.s)
+        # fold_noise's train pair carries s² on its diagonal already
+        qh, ql = qform_refined(Th, Tl, W0, Kh.T, Kl.T,
+                               0.0 if self._fold_noise else self.s)
         del W0, Kh, Kl
         f64 = torch.float64
         var = (ksh.to(f64) + ksl.to(f64)) - (qh.to(f64) + ql.to(f64))

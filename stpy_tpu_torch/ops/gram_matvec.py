@@ -1,7 +1,8 @@
 """Matrix-free Gram products K(x, y)·v and K(x, y)·V, K never stored.
 
 Port of stpy_tpu/ops/pallas_gram_matvec.py (`gram_matvec` with its custom
-VJP `_mv_ad`, `gram_matmat`, `make_lazy_matvec`, `make_lazy_matmat`), in
+VJP `_mv_ad`, `gram_matmat`, `make_lazy_matvec`, `make_lazy_matmat`; its
+`make_lazy_matvec_sharded` is in parallel/lazy_kernel.py), in
 the three shape functions of its kernels (`_SHAPES`): the kernel "k",
 "dk_sq" = k'(sq)·sq (the lengthscale gradient) and "dk" = k'(sq) (ARD and
 coordinate cotangents). The 1/γ scaling (scalar or ARD) happens here,
@@ -308,3 +309,4 @@ def make_lazy_matmat(x, *, family="se", gamma=1.0, kappa=1.0, nu=1.5,
         return out + (noise * noise) * V
 
     return matmat
+

@@ -1,8 +1,9 @@
-"""Large-n inference on one device: the matrix-free Gram products, CG
-solvers, low-rank preconditioners, `IterativeGP`, stochastic Lanczos
-quadrature and the matrix-free evidence fit, fused and general tiers (port
-of the single-device part of stpy_tpu/parallel; the mesh tiers and `data`
-wait for their own slice, ROADMAP Queue 1 item 11)."""
+"""Large-n inference: the matrix-free Gram products, CG solvers, low-rank
+preconditioners, `IterativeGP`, stochastic Lanczos quadrature and the
+matrix-free evidence fit, fused and general tiers, and the multi-device
+tier on torch.distributed (a `DeviceMesh`, one rank per device: `mesh`,
+`blocked`, `data`, the mesh tiers of `IterativeGP` and the `make_*_sharded`
+products). Port of stpy_tpu/parallel."""
 
 from stpy_tpu_torch.ops.gram_matvec import (
     gram_matmat,
@@ -33,8 +34,29 @@ from stpy_tpu_torch.parallel.lazy_kernel import (
     fast_atoms,
     make_chunked_matmat,
     make_chunked_matvec,
+    make_lazy_matvec_sharded,
     make_sum_matmat,
     make_sum_matvec,
+)
+from stpy_tpu_torch.parallel.mesh import (
+    distributed_evidence,
+    make_mesh,
+    replicate,
+    restart_farm,
+    shard_rows,
+    sharded_gram,
+)
+from stpy_tpu_torch.parallel.blocked import (
+    DistributedExactGP,
+    blocked_cholesky,
+    chol_sharded,
+    chol_sharded_rec,
+)
+from stpy_tpu_torch.parallel.data import (
+    HostShardedLoader,
+    fit_feature_gp_sharded,
+    host_sharded,
+    streamed_feature_stats,
 )
 from stpy_tpu_torch.parallel.slq import (
     evidence_matvec_only,
@@ -43,7 +65,11 @@ from stpy_tpu_torch.parallel.slq import (
 )
 
 __all__ = [
-    "IterativeGP", "cg_solve", "cg_solve_block",
+    "DistributedExactGP", "HostShardedLoader", "IterativeGP",
+    "blocked_cholesky", "cg_solve", "cg_solve_block", "chol_sharded",
+    "chol_sharded_rec", "distributed_evidence", "fit_feature_gp_sharded",
+    "host_sharded", "make_lazy_matvec_sharded", "make_mesh", "replicate",
+    "restart_farm", "shard_rows", "sharded_gram", "streamed_feature_stats",
     "evidence_matvec_only", "evidence_value_and_grad_general",
     "evidence_value_and_grad_lazy", "evidence_value_and_grad_sum",
     "fast_atoms", "fit_evidence_general", "fit_evidence_lazy",

@@ -1,7 +1,7 @@
-"""Large-n GP inference by preconditioned conjugate gradients, on one device.
+"""Large-n GP inference by preconditioned conjugate gradients.
 
-Port of the single-device part of stpy_tpu/parallel/iterative.py: the CG
-solvers, the low-rank preconditioners and `IterativeGP` with ``mesh=None``.
+Port of stpy_tpu/parallel/iterative.py: the CG solvers, the low-rank
+preconditioners and `IterativeGP`, on one device or over a device mesh.
 With ``lazy=True`` the Gram is never stored: every CG matvec is one
 matrix-free Gram product per kernel atom (parallel/lazy_kernel.py, on the
 card csrc/gram_matvec.cu and csrc/gram_matmat.cu), so memory stays O(n·r)
@@ -30,9 +30,20 @@ kernel on the general tier. ``precision="double"`` with ``var_refine >= 1``
 serves a df-refined exact variance (`_std_exact_df`). `sample_pathwise`
 draws posterior paths by Matheron's rule: a prior path from a feature
 embedding and a data correction by unpreconditioned CG, one recurrence per
-path as the JAX package's `vmap(cg_solve)` (`_cg_columns`). The mesh tiers
-(``mesh`` other than None) are not ported yet and raise
-NotImplementedError naming ROADMAP Queue 1 item 11.
+path as the JAX package's `vmap(cg_solve)` (`_cg_columns`).
+
+With a ``mesh`` (parallel/mesh.py: a `DeviceMesh`, one rank per device,
+every rank calling with the same x and y) the operator is row-sharded over
+``mesh[axis]``, as in the JAX package: ``lazy=True`` runs the sums of fused
+atoms (or the row-chunked general tier) on each rank's (n/p, n) tile with
+no preconditioner (`make_*_sharded`); ``lazy=False`` builds each rank's
+(n/p, n) Gram rows once (csrc/gram.cu on the card) and preconditions by
+block Jacobi, each rank factoring the diagonal block at its global row
+offset; ``precision="double"`` shards its df residual and mean GEMVs the
+same way (`_make_df_gemv_sharded`), while its variance stays CG-grade f32
+(``var_refine`` is not used on a mesh, as in the JAX package). CG runs on
+replicated vectors: each product's row blocks are gathered, so every
+rank's iterates are the single-device ones.
 
 A second departure: `sample_pathwise`'s CG runs without the stagnation
 stop, each path to `tol` or `maxiter`. Without a preconditioner the system
@@ -51,6 +62,7 @@ import warnings
 import torch
 
 from stpy_tpu_torch.config import as_tensor, resolve_device
+from stpy_tpu_torch.linalg import chol_jittered, cho_solve
 from stpy_tpu_torch.kernels.df_plan import (
     df_atom_desc,
     df_diag_from_desc,
@@ -62,10 +74,15 @@ from stpy_tpu_torch.parallel.lazy_kernel import (
     atom_params,
     fast_atoms,
     make_chunked_matmat,
+    make_chunked_matmat_sharded,
     make_chunked_matvec,
+    make_chunked_matvec_sharded,
     make_sum_matmat,
+    make_sum_matmat_sharded,
     make_sum_matvec,
+    make_sum_matvec_sharded,
 )
+from stpy_tpu_torch.parallel.mesh import axis_info, gather_rows, rows_of
 
 
 def _auto_window(stall_window, dtype):
@@ -397,6 +414,36 @@ def nystrom_precond_from_cross(C, idx, noise, shift=1e-5):
     return lowrank_eigen_precond(B, noise)
 
 
+def _make_df_gemv_sharded(kernel_object, desc, mesh, axis, df_chunk, dtype):
+    """Row-sharded exact df GEMV (hi, lo) of K(a, b)·(vh + vl) over a mesh:
+    each rank sweeps its (rows/p, n_b) strip of the (hi, lo) Gram in
+    `df_chunk` tiles (csrc/gram_df.cu, then csrc/gemv_df.cu on the card),
+    b, vh and vl replicated; a is padded to a multiple of the axis and the
+    row blocks are gathered. What extends ``precision="double"`` beyond
+    one device."""
+    _, _, p = axis_info(mesh, axis)
+
+    def df_gemv(a, b, vh, vl):
+        n = a.shape[0]
+        pad = (-n) % p
+        if pad:
+            a = torch.cat([a, a.new_zeros((pad, a.shape[1]))])
+        local, _, _ = rows_of(a, mesh, axis)
+        c = max(1, min(df_chunk, local.shape[0]))
+        outs_h, outs_l = [], []
+        for r0 in range(0, local.shape[0], c):
+            Kh, Kl = df_gram_from_desc(kernel_object, {}, local[r0:r0 + c], b,
+                                       desc)
+            Ph, Pl = gemv_df(Kh.to(dtype), Kl.to(dtype), vh, vl=vl)
+            outs_h.append(Ph)
+            outs_l.append(Pl)
+        hh = gather_rows(torch.cat(outs_h), mesh, axis)
+        ll = gather_rows(torch.cat(outs_l), mesh, axis)
+        return hh[:n], ll[:n]
+
+    return df_gemv
+
+
 class IterativeGP:
     """Exact-GP inference by preconditioned CG (API of GaussianProcess:
     fit_gp / mean / mean_std), for n where a dense Cholesky no longer fits.
@@ -413,10 +460,9 @@ class IterativeGP:
                  chunk=2048, precond_rank="auto", precision="single",
                  df_refine_steps=2, df_chunk=4096, var_refine=1,
                  device=None, dtype=None, generator=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "IterativeGP over a device mesh needs torch.distributed, "
-                "ROADMAP Queue 1 item 11")
+        if mesh is not None and mesh.device_type != kernel_object.device.type:
+            raise ValueError(f"a {mesh.device_type} mesh for a kernel on "
+                             f"{kernel_object.device}")
         if precision not in ("single", "double"):
             raise ValueError(
                 f"precision must be single|double, got {precision}")
@@ -445,6 +491,7 @@ class IterativeGP:
         self.var_refine = max(0, int(var_refine))
         self.generator = generator
         self._df_desc_cache = None
+        self._df_gemv_sharded = None
         self._A_df = None
         self.x = self.y = self.A = None
         self.fit_status = None
@@ -485,6 +532,9 @@ class IterativeGP:
         `self._matmat` that `mean_std`'s exact variance runs on."""
         ko = self.kernel_object
         n = x.shape[0]
+        if self.mesh is not None:
+            return (self._lazy_mesh_operators(x) if self.lazy
+                    else self._dense_mesh_operators(x))
         if self.lazy:
             self._matmat = self._lazy_matmat(x)
             M_inv = None
@@ -501,6 +551,51 @@ class IterativeGP:
         self._matmat = lambda V: K @ V
         return (lambda v: K @ v), None
 
+    def _lazy_mesh_operators(self, x):
+        """The sharded matrix-free operator: one fused pass per atom on
+        each rank's (n/p, n) tile for sums of fused atoms, else the
+        row-chunked general tier over the same mesh; no preconditioner."""
+        ko, mesh, axis = self.kernel_object, self.mesh, self.axis
+        atoms = fast_atoms(ko)
+        if atoms is None:
+            self._matmat = make_chunked_matmat_sharded(
+                ko, x, mesh, axis, noise=self.s, chunk=self.chunk)
+            return make_chunked_matvec_sharded(
+                ko, x, mesh, axis, noise=self.s, chunk=self.chunk), None
+        gk = [atom_params(ko, a) for a in atoms]
+        gs, ks = [g for g, _ in gk], [k for _, k in gk]
+        self._matmat = make_sum_matmat_sharded(x, mesh, axis, atoms, gs, ks,
+                                               noise=self.s)
+        return make_sum_matvec_sharded(x, mesh, axis, atoms, gs, ks,
+                                       noise=self.s), None
+
+    def _dense_mesh_operators(self, x):
+        """Each rank's (n/p, n) Gram rows, built once with σ² on its
+        diagonal at the block's global offset; the products gather the
+        row blocks. Block Jacobi: each rank factors its diagonal block and
+        applies it to its rows of a vector or of a block (the JAX
+        package's `M_inv` and `_M_inv_block` in one function)."""
+        ko, mesh, axis = self.kernel_object, self.mesh, self.axis
+        _, _, p = axis_info(mesh, axis)
+        if x.shape[0] % p:
+            raise ValueError("n must divide the mesh axis for row sharding")
+        local, x_all, row0 = rows_of(x, mesh, axis)
+        nl = local.shape[0]
+        rows = slice(row0, row0 + nl)
+        K_rows = ko.eval_params(ko.params_dict, local, x_all)
+        K_rows[:, rows].diagonal().add_(self.s ** 2)
+        L_block = chol_jittered(K_rows[:, rows])
+
+        def matmat(V):
+            return gather_rows(K_rows @ V, mesh, axis)
+
+        def M_inv(r):
+            z = cho_solve(L_block, r[rows].reshape(nl, -1))
+            return gather_rows(z.reshape(r[rows].shape), mesh, axis)
+
+        self._matmat = matmat
+        return (lambda v: matmat(v.reshape(-1))), M_inv
+
     # -- double-float tier -------------------------------------------------
     def _df_desc(self):
         if self._df_desc_cache is None:
@@ -513,6 +608,11 @@ class IterativeGP:
         (df_chunk, n) pair is a transient. Returns (hi, lo) of shape
         (len(a),)."""
         ko = self.kernel_object
+        if self.mesh is not None:
+            if self._df_gemv_sharded is None:
+                self._df_gemv_sharded = _make_df_gemv_sharded(
+                    ko, desc, self.mesh, self.axis, self.df_chunk, self.dtype)
+            return self._df_gemv_sharded(a, b, vh, vl)
         outs_h, outs_l = [], []
         for r0 in range(0, a.shape[0], self.df_chunk):
             Kh, Kl = df_gram_from_desc(ko, {}, a[r0:r0 + self.df_chunk], b,
@@ -649,7 +749,7 @@ class IterativeGP:
         mu = self.mean(xtest)
         M_inv = self._M_inv
         if (method == "exact" and self.precision == "double"
-                and self.var_refine > 0):
+                and self.var_refine > 0 and self.mesh is None):
             # the df path builds its own df cross Gram: no f32 K_star
             return mu, self._std_exact_df(xtest, self._matmat, M_inv)
         K_star = self.kernel_object.cross(xtest, self.x)       # (t, n)

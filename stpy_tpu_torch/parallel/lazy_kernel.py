@@ -1,7 +1,7 @@
-"""Matrix-free views of KernelFunction objects, on one device.
+"""Matrix-free views of KernelFunction objects.
 
-Port of the single-device part of stpy_tpu/parallel/lazy_kernel.py. Two
-tiers, neither stores an (n, n) Gram:
+Port of stpy_tpu/parallel/lazy_kernel.py. Two tiers, neither stores an
+(n, n) Gram:
 
   * fast tier (`fast_atoms`): kernels that are sums of fused atoms (SE / ARD
     / Matérn ν ∈ {½, 3/2, 5/2}, each optionally on a coordinate `group`).
@@ -19,8 +19,12 @@ tiers, neither stores an (n, n) Gram:
     directions, also for a product kernel, whose `*` would otherwise keep
     both factors' tiles.
 
-The mesh variants (`make_*_sharded`) wait for torch.distributed (ROADMAP
-Queue 1 item 11).
+The mesh variants (`make_*_sharded`, `make_lazy_matvec_sharded` for one
+atom) run both tiers over a device mesh (parallel/mesh.py): each rank
+computes the rows of its (n/p, n) tile, with the global row offset of its
+block for the σ² term, and the row blocks are gathered, so the product
+comes back whole on every rank. No output row is summed across ranks.
+`x` is a global tensor or a row-sharded `DTensor`.
 """
 
 from __future__ import annotations
@@ -31,7 +35,12 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from stpy_tpu_torch.ops.gram import _as_factor
-from stpy_tpu_torch.ops.gram_matvec import gram_matmat_scaled, gram_matvec_scaled
+from stpy_tpu_torch.ops.gram_matvec import (
+    gram_matmat_scaled,
+    gram_matvec,
+    gram_matvec_scaled,
+)
+from stpy_tpu_torch.parallel.mesh import gather_rows, rows_of
 
 
 @dataclass
@@ -172,3 +181,103 @@ def make_chunked_matmat(kernel_object, x, params_dict=None, *, noise=0.0,
         return out + (noise * noise) * V
 
     return matmat
+
+
+# -- sharded variants: the same two tiers over a device mesh -----------------
+
+def make_lazy_matvec_sharded(x, mesh, axis="tp", *, family="se", gamma=1.0,
+                             kappa=1.0, nu=1.5, noise=0.0):
+    """matvec(v) = (K(x, x) + noise²·I)·v over a device mesh
+    (parallel/mesh.py): each rank runs the matrix-free product on its
+    (n/p, n) row tile (csrc/gram_matvec.cu on the card) and adds σ²·v on its
+    own entries only; the row blocks are gathered, so every rank gets the
+    whole product, v and the result replicated. Per-rank memory stays
+    O(n/p + n). No product reduces across ranks (each output row is one
+    whole dot product on one rank), so on one rank it is bit for bit
+    `make_lazy_matvec`'s. `x` is a global tensor or a row-sharded
+    `DTensor`. Port of stpy_tpu/ops/pallas_gram_matvec.py's, kept here with
+    the other sharded products."""
+    local, x_all, row0 = rows_of(x, mesh, axis)
+    s2 = noise * noise
+
+    def matvec(v):
+        v = v.reshape(-1)
+        out = gram_matvec(local, x_all, v, family=family, gamma=gamma,
+                          kappa=kappa, nu=nu)
+        return gather_rows(out + s2 * v[row0:row0 + local.shape[0]], mesh,
+                           axis)
+
+    return matvec
+
+
+def make_sum_matvec_sharded(x, mesh, axis, atoms, gammas, kappas, *,
+                            noise=0.0):
+    """(Σ_a κ_a K_a + σ²I)·v over a mesh: each rank runs one matrix-free
+    pass per atom on its (n/p, n) row tile (csrc/gram_matvec.cu on the
+    card); O(n/p + n) memory per rank. On one rank it is bit for bit
+    `make_sum_matvec`."""
+    local, x_all, row0 = rows_of(x, mesh, axis)
+    mine = _scaled_atoms(local, atoms, gammas, kappas)
+    every = _scaled_atoms(x_all, atoms, gammas, kappas)
+    rows = slice(row0, row0 + local.shape[0])
+
+    def matvec(v):
+        v = v.reshape(-1)
+        out = (noise * noise) * v[rows]
+        for (xl, k, fam, nu), (xa, _, _, _) in zip(mine, every):
+            out = out + gram_matvec_scaled(xl, xa, v, k, fam, nu)
+        return gather_rows(out, mesh, axis)
+
+    return matvec
+
+
+def make_sum_matmat_sharded(x, mesh, axis, atoms, gammas, kappas, *,
+                            noise=0.0):
+    """Block-RHS companion of `make_sum_matvec_sharded`: (Σ κ_a K_a +
+    σ²I)·V for V (n, r), one pass of csrc/gram_matmat.cu per atom on each
+    rank's rows."""
+    local, x_all, row0 = rows_of(x, mesh, axis)
+    mine = _scaled_atoms(local, atoms, gammas, kappas)
+    every = _scaled_atoms(x_all, atoms, gammas, kappas)
+    rows = slice(row0, row0 + local.shape[0])
+
+    def matmat(V):
+        out = (noise * noise) * V[rows]
+        for (xl, k, fam, nu), (xa, _, _, _) in zip(mine, every):
+            out = out + gram_matmat_scaled(xl, xa, V, k, fam, nu)
+        return gather_rows(out, mesh, axis)
+
+    return matmat
+
+
+def make_chunked_matmat_sharded(kernel_object, x, mesh, axis,
+                                params_dict=None, *, noise=0.0, chunk=2048):
+    """Row-sharded general tier, block RHS: ANY kernel, each rank
+    evaluating one (chunk, n) tile of its own row block at a time against
+    the whole (n, r) V — O(chunk·n + n·r) per rank."""
+    pd = params_dict or kernel_object.params_dict
+    local, x_all, row0 = rows_of(x, mesh, axis)
+    rows = slice(row0, row0 + local.shape[0])
+
+    def matmat(V):
+        out = torch.cat([kernel_object.eval_params(pd, local[r0:r0 + chunk],
+                                                   x_all) @ V
+                         for r0 in range(0, local.shape[0], chunk)])
+        return gather_rows(out + (noise * noise) * V[rows], mesh, axis)
+
+    return matmat
+
+
+def make_chunked_matvec_sharded(kernel_object, x, mesh, axis,
+                                params_dict=None, *, noise=0.0, chunk=2048):
+    """Row-sharded general-tier matvec: ANY kernel (products, Laplace,
+    additive groups, …), each rank materialising only one (chunk, n) tile
+    of its own rows at a time — O(chunk·n) per rank, never O(n²/p)."""
+    matmat = make_chunked_matmat_sharded(kernel_object, x, mesh, axis,
+                                         params_dict, noise=noise,
+                                         chunk=chunk)
+
+    def matvec(v):
+        return matmat(v.reshape(-1, 1))[:, 0]
+
+    return matvec

@@ -168,16 +168,6 @@ def test_refit_releases_previous_fit(data):
     assert tg.n == 96
 
 
-@pytest.mark.parametrize("kwargs,call", [
-    (dict(jitter_ladder="recompute"), None),
-    (dict(precision="double", fold_noise=True, jitter_ladder=False), None),
-], ids=["recompute", "fold_noise"])
-def test_unported_paths_raise_naming_the_roadmap(kwargs, call):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        gp = TorchGP(kernel=torch_kernel("se"), **kwargs)
-        call(gp)
-
-
 def test_cpu_tensors_leave_every_launch_counter_at_zero(data):
     x, y, xt = data
     before = launch_counts()

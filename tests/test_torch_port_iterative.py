@@ -329,11 +329,6 @@ def assert_posterior_close(got, want, mean_rtol=MEAN_RTOL, std_rtol=STD_RTOL):
 # the fast tier (sums of fused atoms) and the row-chunked general tier
 
 
-def test_unported_paths_raise_naming_the_roadmap(gp_data):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        tit.IterativeGP(torch_kernel("se"), mesh=object())
-
-
 def df_variance_case(cls, **kw):
     """tests/test_parallel.py:552-590's kernel: SE(0.5) + Matérn-5/2(0.8),
     d = 2."""

@@ -1,8 +1,7 @@
 """The port's twin of tests/test_migration_surface.py: every name of the
 migration table (docs/MIGRATION.md) imports from `stpy_tpu_torch` under the
-same module path, except `DistributedExactGP` and
-`make_lazy_matvec_sharded` of `parallel`, the multi-device tier, which is
-ROADMAP Queue 1 item 11."""
+same module path, the multi-device tier of `parallel` (`DistributedExactGP`,
+`make_lazy_matvec_sharded`, the `mesh` and `data` names) included."""
 
 
 def test_port_migration_table_imports():
@@ -65,8 +64,14 @@ def test_port_migration_table_imports():
     from stpy_tpu_torch.dimred import SRI                        # noqa: F401
     from stpy_tpu_torch.feature_importance import FeatureRanker  # noqa: F401
     from stpy_tpu_torch.parallel import (         # noqa: F401
-        IterativeGP, cg_solve_block, evidence_value_and_grad_lazy,
-        make_lazy_matvec,
+        DistributedExactGP, IterativeGP, cg_solve_block,
+        evidence_value_and_grad_lazy, make_lazy_matvec,
+        make_lazy_matvec_sharded,
+    )
+    from stpy_tpu_torch.parallel import (         # noqa: F401
+        HostShardedLoader, distributed_evidence, fit_feature_gp_sharded,
+        host_sharded, make_mesh, replicate, restart_farm, shard_rows,
+        sharded_gram, streamed_feature_stats,
     )
     from stpy_tpu_torch.configs import (          # noqa: F401
         GPConfig, KernelConfig, PoissonRateConfig,
