@@ -24,7 +24,9 @@ from its pieces, held bit for bit to it; last
 exp_r3_df_entry.py, the port of
 benchmarks/exp_r3_batch_{p,t,u,x}.py) at full size, every stage of the
 df Matérn entry held to 1e-13 of host float64 and 40-digit decimal, on the
-gram_df_stages kernel and gram_df.cu's stage launch; then (phase 13) the
+gram_df_stages kernel and gram_df.cu's stage launch, and both kernels held
+to their plain versions and timed at bench.py's 16384² beside their bounds
+and their launch floor (the probe's toy shapes); then (phase 13) the
 matrix-free hyperparameter fit (parallel/bbmm.py, parallel/slq.py): the
 evidence gradient at n = 32768 on phase 8's data and kernel, and on an ARD
 SE kernel, against the dense float64 gradient within the Hutchinson
@@ -529,6 +531,20 @@ STAGE_RTOL = exp_r3_df_entry.DF_RTOL
 STAGE_FAMILIES = (("se", 1.5), ("matern", 0.5), ("matern", 1.5),
                   ("matern", 2.5))
 STAGE_KAPPA = 1.3
+# Rule 2 for both stage kernels at a shape where a time is not launch
+# overhead: bench.py's x (n = N, d = D, numpy seed 0) over the probe's γ,
+# K(x, x) Matérn-5/2, as row 3's production gram_df launch; gram_df_stages
+# takes those pairs' squared distances as f32 pairs. Each kernel is timed
+# over STAGE_REPS launches there and STAGE_FLOOR_REPS at the probe's toy
+# shape (P's grid, X's slice: the launch floor), its plain version over
+# STAGE_PLAIN_REPS, and held to it in row blocks of STAGE_BLOCK (the
+# float64 plain version of a 16384² stage holds several 2 GiB temporaries).
+STAGE_REPS, STAGE_FLOOR_REPS, STAGE_PLAIN_REPS = 20, 200, 2
+STAGE_BLOCK = 2048
+# gram_df's K(x, x) launch computes its lower half and mirrors it: held
+# bitwise to K(x, x') on a copy of x at 16384² and at this n, whose last
+# tiles the edge cuts, in every shape code
+STAGE_RAGGED_N = 1000
 
 # Phase 15: the rest of the GP models. Sizes follow the repo's workloads.
 # 15.1: bbmm's general tier (evidence_value_and_grad_general) on phase 8's
@@ -867,12 +883,14 @@ def cuda_ms(fn, reps=5) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def timed_pair(kernel_fn, plain_fn, reps=5):
-    """(kernel ms, plain ms), run in turns plain, kernel, kernel, plain."""
-    p1 = cuda_ms(plain_fn, reps)
+def timed_pair(kernel_fn, plain_fn, reps=5, plain_reps=None):
+    """(kernel ms, plain ms), run in turns plain, kernel, kernel, plain; the
+    plain version over `plain_reps` runs (default `reps`)."""
+    plain_reps = reps if plain_reps is None else plain_reps
+    p1 = cuda_ms(plain_fn, plain_reps)
     k1 = cuda_ms(kernel_fn, reps)
     k2 = cuda_ms(kernel_fn, reps)
-    p2 = cuda_ms(plain_fn, reps)
+    p2 = cuda_ms(plain_fn, plain_reps)
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
@@ -2204,9 +2222,11 @@ def df_stage_phase(dev):
     and gram_df[stage] on X's slice (SE and the three Matérns, κ = 1.3)
     against their plain versions at STAGE_RTOL, gram_df[stage]'s "entry"
     bitwise against the production gram_df; each timed at the probe's
-    shape (ν = 5/2, stage "entry") beside its bound, whose FP64 operations
-    are counted from the compiled SASS (`stage_ops`). Returns (probe
-    results, launch counts, errors, times, bounds)."""
+    shape (ν = 5/2, stage "entry": the launch floor) and, with its checks,
+    at bench.py's 16384² (`stage_production_phase`) beside its bound, whose
+    FP64 operations are counted from the compiled SASS (`stage_ops`) for
+    gram_df_stages. Returns (probe results, launch counts, errors, times and
+    bounds at 16384², name -> the record's further keys)."""
     reset_launch_counts()
     t0 = time.perf_counter()
     results = exp_r3_df_entry.run(dev)
@@ -2258,16 +2278,15 @@ def df_stage_phase(dev):
           f"rel err {worst!r} (bar {STAGE_RTOL}); stage entry bitwise equal "
           "to the production gram_df")
 
-    times = {
-        "gram_df_stages": timed_pair(
+    # the toy shapes' times: what one launch costs where the work is
+    # negligible (the launch floor)
+    floor = {
+        "gram_df_stages": (cuda_ms(
             lambda: df_entry_stage(sqh, sql, nu=2.5, stage="entry"),
-            lambda: df_entry_stage_plain(sqh, sql, nu=2.5, stage="entry"),
-            reps=20),
-        "gram_df[stage]": timed_pair(
+            STAGE_FLOOR_REPS), tuple(sqh.shape)),
+        "gram_df[stage]": (cuda_ms(
             lambda: gram_df_stage(xs, ys, 1.0, family="matern", nu=2.5,
-                                  stage="entry"),
-            lambda: gram_df_stage_plain(xs, ys, 1.0, family="matern", nu=2.5,
-                                        stage="entry"), reps=20),
+                                  stage="entry"), STAGE_FLOOR_REPS), (n, m)),
     }
     funcs = sass_functions()
     for stage in ENTRY_STAGES:
@@ -2276,16 +2295,147 @@ def df_stage_phase(dev):
               "(FP64, 64-bit MUFU) instructions per entry "
               f"{stage_ops(funcs, 3, code)}")
     fp64, mufu = stage_ops(funcs, 3, gram_df_stages.STAGE_CODES["entry"])
-    entries = sqh.numel()
-    # gram_df[stage]: per pair the d-loop's DADD and DFMA per feature, the
-    # entry as in the stage kernel less its input's DADD, and κ's DMUL
-    bounds = {"gram_df_stages": stage_bound(entries, 16 * entries, fp64, mufu),
-              "gram_df[stage]": stage_bound(n * m, 8 * (n + m) * d + 8 * n * m,
-                                            2 * d + fp64, mufu)}
+    toy_bounds = {"gram_df_stages": stage_bound(sqh.numel(), 16 * sqh.numel(),
+                                                fp64, mufu),
+                  "gram_df[stage]": gram_bounds(n, m, d)["gram_df"]}
+    t0 = time.perf_counter()
+    times, bounds, full_err, stages_ms, big = stage_production_phase(
+        dev, fp64, mufu)
+    print(f"  the checks and timings at {big}x{big}: "
+          f"{time.perf_counter() - t0!r} s")
+    extra = {}
     for name, (k_ms, p_ms) in times.items():
-        print(f"  {name}: kernel {k_ms!r} ms, plain {p_ms!r} ms, bound "
-              f"{bounds[name][0]!r} ms ({bounds[name][1]})")
-    return results, counts, err, times, bounds
+        err[name] = max(err[name], full_err[name])
+        share = bounds[name][0] / k_ms
+        f_ms, f_shape = floor[name]
+        extra[name] = {"share_of_bound": share, "launch_floor_ms": f_ms,
+                       "launch_floor_shape": f_shape,
+                       "launch_floor_bound_ms": toy_bounds[name][0]}
+        print(f"  {name} at {big}x{big}: kernel {k_ms!r} ms, plain {p_ms!r} ms, "
+              f"bound {bounds[name][0]!r} ms ({bounds[name][1]}), "
+              f"{share * 100:.1f} % of it reached: "
+              f"{'at least' if share >= 0.5 else 'BELOW'} half (rule 2); "
+              f"launch floor {f_ms!r} ms at {f_shape} (bound there "
+              f"{toy_bounds[name][0]!r} ms)")
+    cross_ms = stages_ms["entry x'"]
+    cross_share = bounds["gram_df[stage]"][0] / cross_ms
+    extra["gram_df[stage]"] |= {"stages_ms": stages_ms,
+                                "cross_share_of_bound": cross_share}
+    print(f"  gram_df[stage] on K(x, x') (every tile computed): {cross_ms!r} "
+          f"ms, {cross_share * 100:.1f} % of the bound: "
+          f"{'at least' if cross_share >= 0.5 else 'BELOW'} half")
+    return results, counts, err, times, bounds, extra
+
+
+def stage_production_phase(dev, fp64, mufu):
+    """Phase 12 at bench.py's 16384² (Matérn-5/2, the probe's γ):
+    gram_df[stage] in every stage on K(x, x), the fit Gram's launch (lower
+    half computed, mirrored), bitwise the same stage on K(x, x') with x' a
+    copy of x (every tile computed: a cross Gram's launch; gram_df so in
+    every shape code at n = STAGE_RAGGED_N too), "entry" bitwise
+    the production gram_df; gram_df_stages in every stage on the "sq" pairs;
+    each held to its plain version in row blocks and timed beside its
+    bound; `fp64`, `mufu` are the stage kernel's SASS counts per entry
+    (`stage_ops`). Returns (name -> (kernel ms, plain ms) on K(x, x), name
+    -> bound, name -> max abs error, gram_df[stage]'s ms by stage on K(x, x),
+    on K(x, x') ("entry x'") and the production gram_df's on both, n)."""
+    x, _, _ = bench_data(dev)
+    xs = scale_coords(x.double(), exp_r3_df_entry.G)
+    xc = xs.clone()
+    del x
+    n, d = xs.shape
+    kw = {"family": "matern", "nu": 2.5}
+    err = {"gram_df_stages": 0.0, "gram_df[stage]": 0.0}
+    worst = {"gram_df_stages": 0.0, "gram_df[stage]": 0.0}
+
+    def hold(name, got, plain_rows):
+        for r in range(0, n, STAGE_BLOCK):
+            e, rel = pair_error((got[0][r:r + STAGE_BLOCK],
+                                 got[1][r:r + STAGE_BLOCK]), plain_rows(r))
+            assert rel <= STAGE_RTOL, (name, r, rel)
+            err[name] = max(err[name], e)
+            worst[name] = max(worst[name], rel)
+
+    # the mirrored path where the edge cuts tiles, in every shape code
+    xr = xs[:STAGE_RAGGED_N]
+    for fam, nu in (*STAGE_FAMILIES, ("laplace", 1.5)):
+        pairs = zip(gram_df_scaled(xr, xr, STAGE_KAPPA, fam, nu),
+                    gram_df_scaled(xr, xr.clone(), STAGE_KAPPA, fam, nu))
+        assert all(torch.equal(a, b) for a, b in pairs), \
+            ("gram_df K(x, x) differs from K(x, x')", STAGE_RAGGED_N, fam, nu)
+    for stage in GRAM_STAGES:
+        out = gram_df_stage(xs, xs, 1.0, stage=stage, **kw)
+        hold("gram_df[stage]", out, lambda r: gram_df_stage_plain(
+            xs[r:r + STAGE_BLOCK], xs, 1.0, stage=stage, **kw))
+        gh, gl = gram_df_stage(xs, xc, 1.0, stage=stage, **kw)
+        assert torch.equal(gh, out[0]) and torch.equal(gl, out[1]), \
+            ("K(x, x) from its lower half differs from K(x, x')", stage)
+        del gh, gl
+        if stage == "entry":
+            ph, pl = gram_df_scaled(xs, xs, 1.0, "matern", 2.5)
+            assert torch.equal(ph, out[0]) and torch.equal(pl, out[1]), \
+                "stage entry differs from the production gram_df at 16384²"
+            del ph, pl
+        if stage == "sq":
+            sqh, sql = out
+        del out
+    for stage in ENTRY_STAGES:
+        out = df_entry_stage(sqh, sql, nu=2.5, stage=stage)
+        hold("gram_df_stages", out, lambda r: df_entry_stage_plain(
+            sqh[r:r + STAGE_BLOCK], sql[r:r + STAGE_BLOCK], nu=2.5,
+            stage=stage))
+        del out
+    torch.cuda.empty_cache()
+    print(f"  at {n}x{n} d={d} (bench.py's x over gamma "
+          f"{exp_r3_df_entry.G}, Matérn-5/2): gram_df[stage] stages "
+          f"{GRAM_STAGES} max abs err {err['gram_df[stage]']!r}, max rel err "
+          f"{worst['gram_df[stage]']!r}; gram_df_stages stages {ENTRY_STAGES} "
+          f"on its sq pairs max abs err {err['gram_df_stages']!r}, max rel err "
+          f"{worst['gram_df_stages']!r} (bar {STAGE_RTOL}); every stage "
+          "of K(x, x) bitwise equal to K(x, x'), stage entry to the "
+          "production gram_df")
+
+    times = {"gram_df_stages": timed_pair(
+        lambda: df_entry_stage(sqh, sql, nu=2.5, stage="entry"),
+        lambda: df_entry_stage_plain(sqh, sql, nu=2.5, stage="entry"),
+        reps=STAGE_REPS, plain_reps=STAGE_PLAIN_REPS)}
+    del sqh, sql
+    torch.cuda.empty_cache()
+    # every stage and the production launch in turns, forward then back,
+    # between two timings of the plain entry
+    runs = {stage: functools.partial(gram_df_stage, xs, xs, 1.0, stage=stage,
+                                     **kw) for stage in GRAM_STAGES}
+    runs["entry x'"] = functools.partial(gram_df_stage, xs, xc, 1.0,
+                                         stage="entry", **kw)
+    runs["gram_df"] = functools.partial(gram_df_scaled, xs, xs, 1.0,
+                                        "matern", 2.5)
+    runs["gram_df x'"] = functools.partial(gram_df_scaled, xs, xc, 1.0,
+                                           "matern", 2.5)
+    plain = functools.partial(gram_df_stage_plain, xs, xs, 1.0,
+                              stage="entry", **kw)
+    p_ms = cuda_ms(plain, STAGE_PLAIN_REPS)
+    stages_ms = dict.fromkeys(runs, 0.0)
+    for order in (list(runs), list(runs)[::-1]):
+        for key in order:
+            stages_ms[key] += cuda_ms(runs[key], STAGE_REPS) / 2
+    p_ms = (p_ms + cuda_ms(plain, STAGE_PLAIN_REPS)) / 2
+    times["gram_df[stage]"] = (stages_ms["entry"], p_ms)
+    torch.cuda.empty_cache()
+
+    entries = n * n
+    bounds = {"gram_df_stages": stage_bound(entries, 16 * entries, fp64, mufu),
+              "gram_df[stage]": gram_bounds(n, n, d)["gram_df"]}
+    # the d-loop's DADD and DFMA per feature, the entry as the stage kernel
+    # compiles it (less its input's DADD) and κ's DMUL: the FP64
+    # instructions as compiled, beside the bound's count of 3d + 10
+    compiled_ms = entries * (2 * d + fp64) / F64_INSTR * 1e3
+    print(f"  gram_df[stage] at {n}x{n}: ms by stage {stages_ms} (on "
+          "K(x, x), x' a copy of x; gram_df: the production launch); bound "
+          f"{bounds['gram_df[stage]'][0]!r} ms "
+          f"({bounds['gram_df[stage]'][1]}) for every stage (the same "
+          f"bytes); the FP64 instructions as compiled over {F64_INSTR:.3g}/s "
+          f"{compiled_ms!r} ms")
+    return times, bounds, err, stages_ms, n
 
 
 def atom_k64(x64, fam, gamma, kappa, deriv=None, nu=1.5):
@@ -6848,7 +6998,7 @@ def main(argv=None) -> int:
           f"(stpy_tpu_torch/probes/exp_r3_df_entry.py: benchmarks/"
           f"exp_r3_batch_p/t/u/x.py), Matérn-5/2, gamma = "
           f"{exp_r3_df_entry.G}, d = {D}, against float64 and decimal")
-    probe, probe_counts, errs_stage, stage_times, stage_bounds = \
+    probe, probe_counts, errs_stage, stage_times, stage_bounds, stage_extra = \
         df_stage_phase(dev)
     errs |= errs_stage
     ktimes |= stage_times
@@ -7064,6 +7214,7 @@ def main(argv=None) -> int:
          "ms": ktimes[name][0], "plain_ms": ktimes[name][1],
          "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
          "library_ms": library.get(name),
+         **stage_extra.get(name, {}),
          "phase15_launches": {sub: c[name] for sub, c in sub_counts.items()
                               if c.get(name)},
          "phase16_launches": {sub: c[name] for sub, c in sub_counts16.items()

@@ -5,8 +5,9 @@ Counterpart of stpy_tpu/config.py. The JAX package forces
 ``jax_default_matmul_precision="highest"`` because a GP is accuracy-critical;
 the card's equivalent is to keep TF32 off for matmuls and convolutions, set
 here when the package is imported. There is no global dtype flag: models and
-kernels take an explicit ``device`` and ``dtype``; a ``device`` left as None
-means the card (:func:`resolve_device`).
+kernels take an explicit ``device`` and ``dtype``, the dtype defaulting to
+:func:`default_dtype`; a ``device`` left as None means the card
+(:func:`resolve_device`).
 """
 
 from __future__ import annotations
@@ -24,7 +25,15 @@ _JITTER_F32 = 1e-6
 _JITTER_F64 = 1e-12
 
 
-def default_jitter(dtype: torch.dtype = torch.float32) -> float:
+def default_dtype() -> torch.dtype:
+    """The float dtype the port's constructors default to: float32, what the
+    JAX package's `default_dtype` gives with x64 off. Nothing switches it;
+    a float64 model is built with ``dtype=torch.float64``."""
+    return torch.float32
+
+
+def default_jitter(dtype: torch.dtype | None = None) -> float:
+    dtype = dtype or default_dtype()
     return _JITTER_F64 if dtype == torch.float64 else _JITTER_F32
 
 

@@ -25,6 +25,15 @@
 // 256-thread block, 4x4 register sub-tiles strided by 16 for coalesced stores,
 // 16 features of x and y staged in shared memory per pass, ragged edges masked.
 //
+// K(x, x) (y is x, the fit Gram): the FP64 arithmetic, not the stores, bounds
+// a Matern-5/2 launch on an H100 (at 16384^2 the stage "sq" alone writes the
+// same bytes in under half the time of the entry), so the kernel computes
+// only the tiles on and below the diagonal and writes each tile below it
+// twice: in place, and transposed through shared memory (the staging area of
+// the d-loop, free by then) so that both stores are coalesced. Every entry
+// keeps its bits: (x_j - x_i)^2 = (x_i - x_j)^2 exactly, so K(x, x) computed
+// whole is symmetric bit for bit.
+//
 // Stages: the entry is csrc/gram_df_entry.cuh's df_entry, and the STAGE
 // template argument picks the value the kernel writes -- kappa times the entry
 // (STAGE_ENTRY, what stpy_gram_df launches), or the squared distance, t or
@@ -43,14 +52,29 @@ constexpr int TILE = 64;
 constexpr int KC = 16;
 constexpr int TPB = 16;
 constexpr int PER = TILE / TPB;
+// four blocks an SM (64 registers a thread, no spill): a cross Gram's
+// Matern-5/2 launch at 16384^2 ran 2.6-3.9 % faster on an H100 than at the
+// three blocks of an uncapped build (tools/kernel_ab.py,
+// tools/gram_df_variants.py)
+constexpr int MIN_BLOCKS = 4;
 
+// shared memory: the d-loop's x and y staging, then (K(x, x) only) the
+// tile's hi and lo floats for its transposed store
+constexpr int STAGING_BYTES = 2 * TILE * (KC + 1) * sizeof(double);
+constexpr int TRANSPOSE_BYTES = 2 * TILE * (TILE + 1) * sizeof(float);
+constexpr int SMEM_BYTES =
+    STAGING_BYTES > TRANSPOSE_BYTES ? STAGING_BYTES : TRANSPOSE_BYTES;
+
+// sym: y is x (n == m); the blocks above the diagonal return at once.
 template <int SHAPE, int STAGE>
-__global__ void __launch_bounds__(TPB * TPB)
+__global__ void __launch_bounds__(TPB * TPB, MIN_BLOCKS)
 gram_df_kernel(const double* __restrict__ x, const double* __restrict__ y,
                float* __restrict__ hi, float* __restrict__ lo, int n, int m,
-               int d, double kappa) {
-  __shared__ double xs[TILE][KC + 1];
-  __shared__ double ys[TILE][KC + 1];
+               int d, double kappa, bool sym) {
+  if (sym && blockIdx.x > blockIdx.y) return;
+  __shared__ __align__(16) unsigned char smem[SMEM_BYTES];
+  auto xs = reinterpret_cast<double (*)[KC + 1]>(smem);
+  auto ys = xs + TILE;
   const int tx = threadIdx.x, ty = threadIdx.y, tid = ty * TPB + tx;
   const int row0 = blockIdx.y * TILE, col0 = blockIdx.x * TILE;
 
@@ -83,6 +107,10 @@ gram_df_kernel(const double* __restrict__ x, const double* __restrict__ y,
     __syncthreads();
   }
 
+  // the d-loop's last __syncthreads() has passed: the staging area is free
+  const bool mirror = sym && blockIdx.x < blockIdx.y;
+  auto th = reinterpret_cast<float (*)[TILE + 1]>(smem);
+  auto tl = th + TILE;
 #pragma unroll
   for (int i = 0; i < PER; ++i) {
     const int r = row0 + ty + TPB * i;
@@ -94,7 +122,32 @@ gram_df_kernel(const double* __restrict__ x, const double* __restrict__ y,
       const double v = STAGE == STAGE_ENTRY
                            ? kappa * df_entry<SHAPE>(sq[i][j])
                            : df_stage<SHAPE, STAGE>(sq[i][j]);
-      store_pair(v, hi, lo, (size_t)r * m + c);
+      float h, l;
+      split_pair(v, h, l);
+      const size_t o = (size_t)r * m + c;
+      hi[o] = h;
+      lo[o] = l;
+      if (mirror) {
+        th[ty + TPB * i][tx + TPB * j] = h;
+        tl[ty + TPB * i][tx + TPB * j] = l;
+      }
+    }
+  }
+  if (!mirror) return;
+  __syncthreads();
+  // the transposed tile: output row col0 + a, column row0 + b holds the
+  // entry at (row0 + b, col0 + a)
+#pragma unroll
+  for (int i = 0; i < PER; ++i) {
+    const int r = col0 + ty + TPB * i;
+    if (r >= n) continue;
+#pragma unroll
+    for (int j = 0; j < PER; ++j) {
+      const int c = row0 + tx + TPB * j;
+      if (c >= m) continue;
+      const size_t o = (size_t)r * m + c;
+      hi[o] = th[tx + TPB * j][ty + TPB * i];
+      lo[o] = tl[tx + TPB * j][ty + TPB * i];
     }
   }
 }
@@ -104,12 +157,13 @@ int launch(const double* x, const double* y, float* hi, float* lo, int n,
            int m, int d, double kappa, int shape, cudaStream_t s) {
   const dim3 grid((m + TILE - 1) / TILE, (n + TILE - 1) / TILE);
   const dim3 block(TPB, TPB);
+  const bool sym = x == y && n == m;
   switch (shape) {
-    case 0: gram_df_kernel<0, STAGE><<<grid, block, 0, s>>>(x, y, hi, lo, n, m, d, kappa); break;
-    case 1: gram_df_kernel<1, STAGE><<<grid, block, 0, s>>>(x, y, hi, lo, n, m, d, kappa); break;
-    case 2: gram_df_kernel<2, STAGE><<<grid, block, 0, s>>>(x, y, hi, lo, n, m, d, kappa); break;
-    case 3: gram_df_kernel<3, STAGE><<<grid, block, 0, s>>>(x, y, hi, lo, n, m, d, kappa); break;
-    case SHAPE_L1: gram_df_kernel<SHAPE_L1, STAGE><<<grid, block, 0, s>>>(x, y, hi, lo, n, m, d, kappa); break;
+    case 0: gram_df_kernel<0, STAGE><<<grid, block, 0, s>>>(x, y, hi, lo, n, m, d, kappa, sym); break;
+    case 1: gram_df_kernel<1, STAGE><<<grid, block, 0, s>>>(x, y, hi, lo, n, m, d, kappa, sym); break;
+    case 2: gram_df_kernel<2, STAGE><<<grid, block, 0, s>>>(x, y, hi, lo, n, m, d, kappa, sym); break;
+    case 3: gram_df_kernel<3, STAGE><<<grid, block, 0, s>>>(x, y, hi, lo, n, m, d, kappa, sym); break;
+    case SHAPE_L1: gram_df_kernel<SHAPE_L1, STAGE><<<grid, block, 0, s>>>(x, y, hi, lo, n, m, d, kappa, sym); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());

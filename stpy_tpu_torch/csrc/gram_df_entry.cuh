@@ -58,11 +58,17 @@ __device__ __forceinline__ double df_stage(double sq) {
 }
 
 // hi = f32(v), lo = f32(v - hi): the (hi, lo) pair of v.
+__device__ __forceinline__ void split_pair(double v, float& h, float& l) {
+  h = static_cast<float>(v);
+  l = static_cast<float>(v - static_cast<double>(h));
+}
+
 __device__ __forceinline__ void store_pair(double v, float* __restrict__ hi,
                                            float* __restrict__ lo, size_t o) {
-  const float h = static_cast<float>(v);
+  float h, l;
+  split_pair(v, h, l);
   hi[o] = h;
-  lo[o] = static_cast<float>(v - static_cast<double>(h));
+  lo[o] = l;
 }
 
 }  // namespace

@@ -91,7 +91,8 @@ def _atom_df_gram(kernel_object, i, fam, nu, gkey, group, p, a, b):
     gamma = p[gkey]
     if group is not None:
         idx = torch.as_tensor(group, device=a.device)
-        a, b = a[:, idx], b[:, idx]
+        sel = a[:, idx]
+        a, b = sel, (sel if b is a else b[:, idx])
         if gkey == "ard_gamma":
             gamma = gamma.reshape(-1)[idx.to(gamma.device)]
     return gram_df(a, b, gamma, p.get("kappa", 1.0), family=fam, nu=nu)

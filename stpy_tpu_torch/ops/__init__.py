@@ -6,11 +6,38 @@ wrapper adds one to its ``launches`` attribute each time it launches its
 kernel and nowhere else, so a run can show that it went through the kernels.
 The matrix-free products count their derivative shapes apart, in
 ``shape_launches`` ("dk_sq", "dk"; ``launches`` counts the shape "k").
+
+The package re-exports the JAX package's ops names (stpy_tpu/ops/__init__.py)
+that mean the same here: `gram_se`, `gram_matern`, `gram_laplace` and
+`make_lazy_matvec`, resolved on first access (`__getattr__`), since the kernel
+modules import this one. `gram` and `gram_matvec` are not re-exported: those
+names are the kernel modules `ops.gram` and `ops.gram_matvec`, whose
+functions `ops.gram.gram` and `ops.gram_matvec.gram_matvec` are the JAX
+package's `ops.gram` and `ops.gram_matvec`.
 """
 
 from __future__ import annotations
 
+import importlib
+
 import torch
+
+# re-exported name -> the port module that defines it
+_REEXPORTS = {
+    "gram_se": "gram",
+    "gram_matern": "gram",
+    "gram_laplace": "gram_l1",
+    "make_lazy_matvec": "gram_matvec",
+}
+
+
+def __getattr__(name):
+    if name not in _REEXPORTS:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    value = getattr(importlib.import_module(f"{__name__}.{_REEXPORTS[name]}"),
+                    name)
+    globals()[name] = value
+    return value
 
 
 def kernel_wrappers() -> dict:

@@ -58,3 +58,10 @@ def gemv_df(Ah, Al, v, vl=None):
 
 
 gemv_df.launches = 0
+
+
+def gemv_df_fused(Ah, Al, v, *, block_m=512, block_k=1024, vl=None):
+    """`gemv_df` under the JAX package's name and signature
+    (pallas_gemv_df.py:gemv_df_fused). block_m and block_k, its VMEM tile,
+    are accepted and ignored: csrc/gemv_df.cu picks its own."""
+    return gemv_df(Ah, Al, v, vl)

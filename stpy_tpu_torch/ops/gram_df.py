@@ -1,7 +1,8 @@
 """Double-float (hi, lo) Gram for the SE, half-integer Matérn and Laplace
 (L1) families.
 
-Port of stpy_tpu/ops/pallas_gram_df.py (`gram_df`, `_df_add`, `_df_mul`).
+Port of stpy_tpu/ops/pallas_gram_df.py (`gram_df`, `gram_se_df`,
+`gram_matern_df`, `_df_add`, `_df_mul`).
 The contract is unchanged: two f32 arrays with hi + lo = k(x, y) to f64
 accuracy, hi = f32(k). The TPU builds the pair from f32 error-free
 transforms because it has no f64; the card computes k in FP64 and splits it.
@@ -85,7 +86,8 @@ def gram_df_plain(xs, ys, kappa, family="se", nu=1.5):
 
 def gram_df_scaled(xs, ys, kappa, family="se", nu=1.5):
     """(hi, lo) Gram of f64 coordinates already scaled by 1/γ (1/γ² for
-    "laplace"). CUDA: the hand kernel; CPU: `gram_df_plain`."""
+    "laplace"). CUDA: the hand kernel, which computes K(xs, xs) from its
+    lower half where ys is xs; CPU: `gram_df_plain`."""
     code = L1_CODE if family == "laplace" else shape_code(family, nu)
     if not xs.is_cuda:
         return gram_df_plain(xs, ys, kappa, family, nu)
@@ -124,8 +126,24 @@ def gram_df(x, y, gamma, kappa=1.0, *, family="se", nu=1.5):
     if family == "laplace":
         g = torch.as_tensor(gamma, dtype=torch.float64, device=x.device)
         gamma = g * g
-    return gram_df_scaled(scale_coords(x, gamma), scale_coords(y, gamma),
-                          kappa, family, float(nu))
+    xs = scale_coords(x, gamma)
+    # one tensor for K(x, x): the kernel then computes its lower half only
+    ys = xs if y is x else scale_coords(y, gamma)
+    return gram_df_scaled(xs, ys, kappa, family, float(nu))
+
+
+def gram_se_df(x, y, gamma, kappa=1.0, *, block_m=256, block_n=256):
+    """Double-float SE Gram (see `gram_df`). block_m and block_n, the JAX
+    package's VMEM tile, are accepted and ignored: csrc/gram_df.cu's tile
+    is fixed."""
+    return gram_df(x, y, gamma, kappa, family="se")
+
+
+def gram_matern_df(x, y, gamma, kappa=1.0, *, nu=1.5, block_m=256,
+                   block_n=256):
+    """Double-float Matérn Gram, ν ∈ {½, 3/2, 5/2} (see `gram_df`);
+    block_m and block_n are accepted and ignored, as in `gram_se_df`."""
+    return gram_df(x, y, gamma, kappa, family="matern", nu=nu)
 
 
 def scale_coords(x, gamma):

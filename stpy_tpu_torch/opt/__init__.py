@@ -4,8 +4,11 @@ from stpy_tpu_torch.opt.custom import (
     newton_solve,
 )
 from stpy_tpu_torch.opt.ellipsoid import (
+    KY_initialization,
+    ellipsoid_cut,
     maximize_on_ellipsoid,
     maximize_on_elliptical_slice,
+    maximum_volume_ellipsoid,
     project_ellipsoid,
 )
 from stpy_tpu_torch.opt.frank_wolfe import (

@@ -8,8 +8,11 @@ BASE is an unpacked copy of an earlier commit, e.g.
 lists). Each tree's kernels are built from its own csrc/ into its own
 build/ and run on the same inputs, at the shapes `chip_smoke.py` times them:
 `gram` (n = m = 16384, d = 8, SE and Matérn-3/2, and a ragged shape),
-`gram_l1` (n = m = 16384, d = 8, and ragged shapes at d = 1, 33 and 130)
-and `gram_matmat` (n = m = 65536, d = 8, r = 128, and a ragged shape),
+`gram_l1` (n = m = 16384, d = 8, and ragged shapes at d = 1, 33 and 130),
+`gram_df` (every shape code: K(x, x), whose lower half this tree computes
+and mirrors, and K(x, x') on a copy x' of x, at n = 300 and 16384, d = 8,
+and at n = 1000, d = 33; timed at 16384 for SE and Matérn-5/2) and
+`gram_matmat` (n = m = 65536, d = 8, r = 128, and a ragged shape),
 whose arithmetic the two trees share, are held bit for bit equal; `syrk_lower`
 (m = 14336 and 2048, k = 2048) is compared as max |Δ| / (|W||W|ᵀ). Each is
 timed by CUDA events in turns, base, this tree, this tree, base. Beside
@@ -38,6 +41,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 import chip_smoke as cs  # noqa: E402
 from stpy_tpu_torch import _build  # noqa: E402
 from stpy_tpu_torch.ops.gram import gram_scaled  # noqa: E402
+from stpy_tpu_torch.ops.gram_df import gram_df_scaled  # noqa: E402
 from stpy_tpu_torch.ops.gram_l1 import gram_l1  # noqa: E402
 from stpy_tpu_torch.ops.gram_matvec import gram_matmat_scaled  # noqa: E402
 from stpy_tpu_torch.ops.syrk import syrk_update_lower_  # noqa: E402
@@ -46,6 +50,13 @@ from stpy_tpu_torch.ops.syrk import syrk_update_lower_  # noqa: E402
 # gram_l1's ragged shapes: n and m not multiples of 4 or 32, d one, past
 # one staged chunk of 32 features, and past four
 L1_RAGGED = ((300, 517, 1), (301, 259, 33), (77, 130, 130))
+# gram_df's shape codes (ops/gram.py:SHAPE_CODES and L1_CODE) and its
+# square shapes (n, d): tiles cut by the edge, more than two staged chunks
+# of 16 features, and the benchmark's
+DF_FAMILIES = (("se", 1.5), ("matern", 0.5), ("matern", 1.5),
+               ("matern", 2.5), ("laplace", 1.5))
+DF_SHAPES = ((300, 8), (1000, 33), (cs.N, cs.D))
+DF_TIMED = (("se", 1.5), ("matern", 2.5))
 
 
 def base_library(base: Path):
@@ -79,13 +90,17 @@ def in_turns(base_fn, new_fn, reps):
 
 
 def same_arithmetic(name, label, fn, base, reps, timed):
-    """Run `fn` on both libraries; assert equal bits; time if `timed`."""
+    """Run `fn` on both libraries; assert equal bits (of each tensor, where
+    `fn` returns a tuple); time if `timed`."""
     with using(base):
         want = fn()
     got = fn()
-    equal = torch.equal(got, want)
+    got, want = ((r,) if torch.is_tensor(r) else r for r in (got, want))
+    equal = all(torch.equal(g, w) for g, w in zip(got, want))
     print(f"  {name} {label}: bitwise equal to the base tree's: {equal}")
-    assert equal, (name, label, float((got - want).abs().max()))
+    assert equal, (name, label, max(float((g - w).abs().max())
+                                    for g, w in zip(got, want)))
+    del got, want
     if not timed:
         return None
 
@@ -132,6 +147,20 @@ def main(argv=None) -> int:
         same_arithmetic("gram_l1", f"ragged {n}x{m} d={d}",
                         lambda xu=xu, yu=yu: gram_l1(xu, yu, inv_g2, 1.3),
                         base, args.reps, False)
+
+    for n, d in DF_SHAPES:
+        xs = coords(n, d).double()
+        xc = xs.clone()
+        for fam, nu in DF_FAMILIES:
+            timed = n == cs.N and (fam, nu) in DF_TIMED
+            for label, ys in (("K(x, x)", xs), ("K(x, x')", xc)):
+                ms = same_arithmetic(
+                    "gram_df", f"{label} {n}x{n} d={d} {fam} {nu}",
+                    lambda ys=ys: gram_df_scaled(xs, ys, 1.3, fam, nu),
+                    base, args.reps, timed)
+                if timed:
+                    record[f"gram_df {label} {fam} {nu}"] = ms
+        del xs, xc
 
     x = coords(cs.N, cs.D)
     for fam, nu in cs.FAMILIES:
